@@ -1,0 +1,96 @@
+"""End-to-end FDK reconstruction pipeline (filter -> back-project).
+
+This is the paper's application context: FDK calls back-projection once,
+which is why the paper optimizes it. The entry point here is a thin
+façade over the plan/compile/execute core (``runtime.planner`` /
+``runtime.executor``): the planner owns scheduling and option
+validation, the shared program cache owns the kernel programs, and the
+executor streams projection chunks.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+from .geometry import CTGeometry
+
+
+def _build_plan(geom: CTGeometry, variant: str, *, nb: int, interpret: bool,
+                tiling, memory_budget: Optional[int],
+                proj_batch: Optional[int], out: Optional[str],
+                schedule: Optional[str] = None, ingest: str = "offline",
+                precision: str = "f32", solver: str = "none",
+                tuning=None, **kernel_options):
+    """Shared façade-to-planner translation (tiling= conventions)."""
+    from repro_torch.runtime.planner import plan_reconstruction
+
+    tiled = tiling is not None or memory_budget is not None
+    if tiling == "auto" and memory_budget is None:
+        raise ValueError(
+            "tiling='auto' needs a memory_budget (bytes) to pick the "
+            "tile shape; pass one or give an explicit (ti, tj, tk)")
+    tile_shape = None if tiling in (None, "auto") else tuple(tiling)
+    if out is None:
+        out = "host" if tiled and solver == "none" else "device"
+    return plan_reconstruction(
+        geom, variant, tile_shape=tile_shape, memory_budget=memory_budget,
+        nb=nb, proj_batch=proj_batch, out=out, interpret=interpret,
+        schedule=schedule, ingest=ingest, precision=precision,
+        solver=solver, tuning=tuning, **kernel_options)
+
+
+def fdk_reconstruct(projections, geom: CTGeometry,
+                    variant: str = "algorithm1_mp", *,
+                    nb: int = 8, interpret: bool = True,
+                    tiling: Union[None, str, Sequence[int]] = None,
+                    memory_budget: Optional[int] = None,
+                    proj_batch: Optional[int] = None,
+                    out: Optional[str] = None,
+                    schedule: Optional[str] = None,
+                    pipeline: Optional[str] = None,
+                    precision: str = "f32",
+                    tuning=None,
+                    service=None,
+                    devices=None,
+                    device=None,
+                    **kernel_options):
+    """Reconstruct volume (nz, ny, nx) from raw projections (np, nh, nw).
+
+    ``projections`` is a tensor on ``device`` or a numpy array (copied
+    there); ``device=None`` means the CUDA card, and without one it
+    raises: pass ``device="cpu"`` for the plain PyTorch path.
+
+    ``proj_batch`` streams the projections through in chunks of that
+    many views (rounded up to a multiple of ``nb``), with FDK
+    pre-weighting + ramp filtering fused into the chunk pipeline.
+    ``out`` selects the accumulator placement ("device", the default, or
+    "host", which returns numpy). ``schedule`` selects the loop order:
+    "step" (default: all chunks filtered once and stacked, one device
+    accumulation) or "chunk" (chunk-major, one filtered chunk resident).
+    ``interpret`` is carried for option parity with the JAX package and
+    selects nothing: only the device chooses between a kernel and its
+    plain version. All parameter validation happens in the planner.
+
+    ``tiling``, ``memory_budget``, ``tuning``, ``service``, ``devices``,
+    ``pipeline="async"``, ``precision="bf16"`` and ``variant="auto"``
+    raise ``NotImplementedError``: they wait in ROADMAP.md.
+    """
+    from repro_torch.runtime.executor import PlanExecutor
+
+    for name, value, item in (("service", service, "10"),
+                              ("devices", devices, "11"),
+                              ("tuning", tuning, "9"),
+                              ("tiling", tiling, "7"),
+                              ("memory_budget", memory_budget, "7")):
+        if value is not None:
+            raise NotImplementedError(
+                f"{name}= is not ported to repro_torch yet (ROADMAP.md "
+                f"queue 1 item {item})")
+    plan = _build_plan(geom, variant, nb=nb, interpret=interpret,
+                       tiling=tiling, memory_budget=memory_budget,
+                       proj_batch=proj_batch, out=out, schedule=schedule,
+                       precision=precision, **kernel_options)
+    return PlanExecutor(
+        geom, plan, pipeline="sync" if pipeline is None else pipeline,
+        device=device,
+    ).reconstruct(projections)

@@ -1,0 +1,162 @@
+"""Declarative registry of the ported back-projection variants.
+
+Each variant is a :class:`KernelSpec`: a capability record the planner
+(``runtime.planner``) consumes to schedule work: which paper
+optimizations the kernel carries, which call-time options it accepts,
+and which symmetry-free member of the ladder substitutes for it on
+Z-slabs that are not centered on the volume midplane (the O3 mirror pairs
+voxel ``k`` with ``nk-1-k`` about the FULL volume's Z center).
+
+Every kernel callable has the uniform signature
+
+    fn(img_t, mat, vol_shape_xyz, **opts) -> vol_t (nx, ny, nz)
+
+operating on transposed layouts, on the device its tensors lie on.
+Ported so far (paper Table 2 naming; ``_mp`` = plain PyTorch, ``_pl`` =
+the hand-written CUDA kernel):
+
+    subline_batch_mp O1+O2+O4+O5 (no O3: exact on any Z-slab; the
+                     planner's slab-safe fallback)
+    algorithm1_mp    O1..O5 (paper Algorithm 1; nb batching)
+    subline_pl       CUDA: O1..O5, kernels/csrc/backproject_subline.cu
+
+The other variants of the JAX package wait in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, FrozenSet, Mapping, Optional, Tuple
+
+from . import backproject as bp
+
+
+def _algorithm1(img_t, mat, vol_shape_xyz, nb: int = 8, **_):
+    return bp.bp_subline_symmetry_batch(img_t, mat, vol_shape_xyz, nb=nb)
+
+
+def _subline_batch(img_t, mat, vol_shape_xyz, nb: int = 8, **_):
+    return bp.bp_subline_batch(img_t, mat, vol_shape_xyz, nb=nb)
+
+
+def _subline_cuda(img_t, mat, vol_shape_xyz, nb: int = 8,
+                  interpret: bool = True, block=(4, 8),
+                  proj_loop: bool = False, **_):
+    from repro_torch.kernels import ops
+    return ops.backproject_subline(img_t, mat, vol_shape_xyz, nb=nb,
+                                   block=block, interpret=interpret,
+                                   proj_loop=proj_loop, device=img_t.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """Capability record for one back-projection kernel.
+
+    Fields
+    ------
+    name : registry key (paper Table 2 naming).
+    fn : kernel callable with the uniform transposed signature.
+    optimizations : which paper optimizations the kernel carries
+        (Table 2 columns; ``"symmetry"`` has scheduling consequences).
+    options : call-time keyword options the kernel actually consumes.
+        The planner filters resolved options through this set so kernels
+        never see (and silently swallow) irrelevant knobs.
+    slab_safe_fallback : name of the strongest symmetry-free variant with
+        the same remaining optimizations: what the planner schedules on
+        a Z-slab that is neither volume-centered nor mirror-paired.
+        ``None`` for symmetry-free kernels (they are their own fallback).
+    backend : "torch" (plain PyTorch) | "cuda" (a hand-written kernel;
+        its wrapper runs the kernel's plain version on CPU tensors).
+    proj_loop : whether the kernel supports the fused multi-batch mode:
+        an in-kernel loop that stages ``nb`` projections per step. The
+        planner defaults the ``proj_loop`` option ON for specs that
+        advertise it.
+    """
+
+    name: str
+    fn: Callable
+    optimizations: Tuple[str, ...]
+    options: FrozenSet[str] = frozenset()
+    slab_safe_fallback: Optional[str] = None
+    backend: str = "torch"
+    proj_loop: bool = False
+
+    @property
+    def uses_symmetry(self) -> bool:
+        """Whether the kernel's math assumes the volume-centered O3 mirror."""
+        return "symmetry" in self.optimizations
+
+    def resolve_options(self, opts: Mapping) -> Dict:
+        """Filter caller options down to the ones this kernel accepts."""
+        return {k: v for k, v in opts.items()
+                if k in self.options and v is not None}
+
+
+_PL_OPTS = frozenset({"nb", "interpret", "block", "proj_loop"})
+
+REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
+    KernelSpec("subline_batch_mp", _subline_batch,
+               ("transpose", "share", "subline", "batch"),
+               options=frozenset({"nb"})),
+    KernelSpec("algorithm1_mp", _algorithm1,
+               ("transpose", "share", "symmetry", "subline", "batch"),
+               options=frozenset({"nb"}),
+               slab_safe_fallback="subline_batch_mp"),
+    KernelSpec("subline_pl", _subline_cuda,
+               ("transpose", "share", "symmetry", "subline", "batch",
+                "localmem", "prefetch"),
+               options=_PL_OPTS,
+               slab_safe_fallback="subline_batch_mp", backend="cuda",
+               proj_loop=True),
+)}
+
+#: variants of the JAX package that this package does not carry yet
+UNPORTED = ("baseline", "transpose_mp", "share_mp", "symmetry_mp",
+            "subline_mp", "onehot_pl", "banded_pl")
+
+
+def _validate_registry() -> None:
+    for spec in REGISTRY.values():
+        if spec.uses_symmetry:
+            fb = spec.slab_safe_fallback
+            if fb is None or fb not in REGISTRY:
+                raise ValueError(
+                    f"symmetry variant {spec.name!r} needs a registered "
+                    f"slab_safe_fallback, got {fb!r}")
+            fspec = REGISTRY[fb]
+            if fspec.uses_symmetry:
+                raise ValueError(
+                    f"{spec.name!r} fallback {fb!r} still uses symmetry")
+            if not set(fspec.optimizations) <= set(spec.optimizations):
+                raise ValueError(
+                    f"{spec.name!r} fallback {fb!r} adds optimizations "
+                    f"the primary does not carry")
+        elif spec.slab_safe_fallback is not None:
+            raise ValueError(
+                f"symmetry-free variant {spec.name!r} must not declare a "
+                f"slab_safe_fallback")
+        if spec.proj_loop and "proj_loop" not in spec.options:
+            raise ValueError(
+                f"{spec.name!r} advertises proj_loop but does not accept "
+                f"the 'proj_loop' call option")
+
+
+_validate_registry()
+
+
+def get_spec(name: str) -> KernelSpec:
+    if name in UNPORTED:
+        raise KeyError(
+            f"back-projection variant {name!r} is not ported to repro_torch "
+            f"yet (see ROADMAP.md, queue 1 item 2 and queue 2); have "
+            f"{sorted(REGISTRY)}")
+    if name not in REGISTRY:
+        raise KeyError(f"unknown back-projection variant {name!r}; "
+                       f"have {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def slab_safe_variant(name: str) -> str:
+    """Variant to run on an arbitrary (non-centered) Z-slab."""
+    spec = get_spec(name)
+    return spec.slab_safe_fallback if spec.uses_symmetry else name
