@@ -5,14 +5,17 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
 
-It builds the CUDA kernels from the sources in the checkout, holds each
-kernel against its plain PyTorch version and the oracle at the sweep
-shapes and at the main path's shape, drives the FDK main path at the
-paper's P5 size (512^3 voxels, 512 views, 512x512 detector) through
-``repro_torch.reconstruct``, checks that the path launched the kernels and
-agrees with the plain ``algorithm1_mp`` path on the card, and times the
-kernels, their plain versions, the filter and the whole reconstruction
-with CUDA events (median of 3 after a warm-up).
+It builds the CUDA kernels (K1-K6) from the sources in the checkout,
+holds each kernel against its plain PyTorch version and the oracle at
+the sweep shapes and at the main path's shape, drives the FDK main path
+at the paper's P5 size (512^3 voxels, 512 views, 512x512 detector)
+through ``repro_torch.reconstruct`` with each CUDA variant
+(``subline_pl``, ``onehot_pl``, ``banded_pl``, each at nb=8 and nb=1),
+checks that each path launched its kernel and agrees with the
+``subline_pl`` and plain ``algorithm1_mp`` paths on the card, and times
+the kernels, their plain versions, the band schedule, the filter and the
+whole reconstructions with CUDA events (median of 3 after a warm-up; a
+single timed run where one run takes over 5 s).
 
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
@@ -41,16 +44,38 @@ DEPTHS = [(70, 64, 4), (129, 96, 5), (200, 128, 4), (500, 256, 3),
           (1000, 512, 4), (1301, 1024, 8)]
 BLOCKS = [(1, 8), (2, 8), (4, 8), (4, 16)]
 NBS = [2, 3, 8]
+K_CHUNKS = [4, 8, 128]            # one-hot k tiles (4 divides no khp here)
+BWS = [8, 16, 32]                 # banded starting band widths
+BANDED = [(16, 48, 4, 16), (13, 17, 5, 8)]   # tests/test_kernels.py cases
+ONEHOT_K1_BAR = 1e-6              # tests/test_kernels.py, K3 against K1
 FLOPS_PER_UPDATE = 8.0            # the repo's ct-backproject cost model
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, non-tensor FP32
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
+LONG_RUN_MS = 5000.0              # above this, one timed run
+SUBLINE_SRC = "src/repro_torch/kernels/csrc/backproject_subline.cu"
+ONEHOT_SRC = "src/repro_torch/kernels/csrc/backproject_onehot.cu"
+# launch counter -> (label, TPU kernel it replaces, CUDA source)
 KERNELS = {
-    "backproject_subline_kernel": ("K1 backproject_subline_kernel",
-                                   "src/repro/kernels/backproject_subline.py:204"),
-    "backproject_subline_fused": ("K2 backproject_subline_fused",
-                                  "src/repro/kernels/backproject_subline.py:240"),
+    "backproject_subline_kernel": (
+        "K1 backproject_subline_kernel",
+        "src/repro/kernels/backproject_subline.py:204", SUBLINE_SRC),
+    "backproject_subline_fused": (
+        "K2 backproject_subline_fused",
+        "src/repro/kernels/backproject_subline.py:240", SUBLINE_SRC),
+    "backproject_onehot_kernel": (
+        "K3 backproject_onehot_kernel",
+        "src/repro/kernels/backproject_onehot.py:144", ONEHOT_SRC),
+    "backproject_onehot_fused": (
+        "K4 backproject_onehot_fused",
+        "src/repro/kernels/backproject_onehot.py:175", ONEHOT_SRC),
+    "backproject_banded_kernel": (
+        "K5 backproject_banded_kernel",
+        "src/repro/kernels/backproject_banded.py:148", SUBLINE_SRC),
+    "backproject_banded_fused": (
+        "K6 backproject_banded_fused",
+        "src/repro/kernels/backproject_banded.py:186", SUBLINE_SRC),
 }
-SOURCE = "src/repro_torch/kernels/csrc/backproject_subline.cu"
+SOURCES = ["backproject_subline", "backproject_onehot"]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -91,6 +116,43 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def timed_long(fn) -> tuple:
+    """``timed(fn)``, or where one run takes over LONG_RUN_MS, that single
+    run (CUDA events; the kernel is built and loaded before). Returns
+    (ms, how)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    if ms > LONG_RUN_MS:
+        return ms, "one timed run (a run exceeds 5 s)"
+    return timed(fn), "median of 3 after a warm-up"
+
+
+def launch_modules():
+    from repro_torch.kernels import backproject_banded as kb
+    from repro_torch.kernels import backproject_onehot as ko
+    from repro_torch.kernels import backproject_subline as ks
+    return ks, ko, kb
+
+
+def reset_launches() -> None:
+    for mod in launch_modules():
+        mod.reset_launches()
+
+
+def launches() -> dict:
+    out = {}
+    for mod in launch_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
@@ -109,27 +171,31 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """All sources at once: one nvcc each, started together."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build(["backproject_subline"])
-    print(f"[build] backproject_subline.cu in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_build.build_log['backproject_subline']['seconds']:.2f} s)")
-    for line in _build.build_log["backproject_subline"]["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[build]   {line.strip()}")
+    _build.build(SOURCES)
+    print(f"[build] {len(SOURCES)} sources in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        print(f"[build] {name}.cu: nvcc "
+              f"{_build.build_log[name]['seconds']:.2f} s")
+        for line in _build.build_log[name]["log"].splitlines():
+            if "registers" in line or "spill" in line or \
+                    "Compiling" in line:
+                print(f"[build]   {line.strip()}")
 
 
-def _sweep_case(geom, seed, errs):
+def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> int:
+    """K1-K6 against their plain versions and the oracle on one geometry;
+    returns how many banded cases the band search widened."""
     import numpy as np
     import torch
     from repro_torch.core.backproject import transpose_projections
     from repro_torch.core.geometry import projection_matrices
     from repro_torch.kernels import ops
-    from repro_torch.kernels.backproject_subline import (
-        backproject_subline_fused, backproject_subline_kernel,
-        backproject_subline_plain)
     from repro_torch.kernels.ref import backproject_ref
+    ks, ko, kb = launch_modules()
 
     npj = geom.n_proj
     rng = np.random.RandomState(seed)
@@ -138,11 +204,14 @@ def _sweep_case(geom, seed, errs):
     img_t = transpose_projections(img)
     mats = projection_matrices(geom)
     shape = geom.volume_shape_xyz
-    plain = backproject_subline_plain(img_t, mats, shape)
+    ni, nj, nz = shape
+    nw = geom.nw
     ref = backproject_ref(img_t, mats, shape)
-    mid = geom.nz // 2 if geom.nz % 2 else None
+    mid = nz // 2 if nz % 2 else None
+    fused_nbs = [nb for nb in NBS + [npj] if npj % nb == 0]
+    lines = {"subline": [], "onehot": [], "banded": []}
 
-    def check(label, kernel, out):
+    def check(family, label, kernel, out, plain):
         torch.cuda.synchronize()
         r_plain, r_ref = rel_rmse(out, plain), rel_rmse(out, ref)
         errs[kernel] = max(errs[kernel], float((out - plain).abs().max()))
@@ -152,41 +221,143 @@ def _sweep_case(geom, seed, errs):
             r_mid = rel_rmse(out[..., mid], ref[..., mid])
             msg += f" middle plane {r_mid:.2e}"
             require(r_mid < BAR, msg)
-        return max(r_plain, r_ref), msg
+        lines[family].append((max(r_plain, r_ref), msg))
 
-    lines = []
-    for block in BLOCKS:
-        lines.append(check(f"K1 block={block}", "backproject_subline_kernel",
-                           ops._run_padded(backproject_subline_kernel, img_t,
-                                           mats, shape, block)))
-        for nb in NBS + [npj]:
-            if npj % nb == 0:
-                lines.append(check(
-                    f"K2 block={block} nb={nb}", "backproject_subline_fused",
-                    ops._run_padded(backproject_subline_fused, img_t, mats,
-                                    shape, block, nb=nb)))
+    # K1/K2: the sub-line kernel
+    sub_plain = ks.backproject_subline_plain(img_t, mats, shape)
+    for block in blocks:
+        check("subline", f"K1 block={block}", "backproject_subline_kernel",
+              ops._run_padded(ks.backproject_subline_kernel, img_t, mats,
+                              shape, block), sub_plain)
+        for nb in fused_nbs:
+            check("subline", f"K2 block={block} nb={nb}",
+                  "backproject_subline_fused",
+                  ops._run_padded(ks.backproject_subline_fused, img_t, mats,
+                                  shape, block, nb=nb), sub_plain)
         for nb in NBS:      # the routed wrapper: K2 when nb | np, else K1
             out = ops.backproject_subline(img_t, mats, shape, nb=nb,
                                           block=block, proj_loop=True)
-            lines.append(check(f"ops block={block} nb={nb}",
-                               "backproject_subline_kernel" if npj % nb
-                               else "backproject_subline_fused", out))
-    print(f"[kernels] volume {shape}, detector {geom.nw}x{geom.nh}, {npj} "
-          f"views: {len(lines)} cases pass; worst: {max(lines)[1]}")
+            check("subline", f"ops block={block} nb={nb}",
+                  "backproject_subline_kernel" if npj % nb
+                  else "backproject_subline_fused", out, sub_plain)
+
+    # K3/K4: the one-hot kernel; K3 also within 1e-6 of K1
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    plain = ko.backproject_onehot_plain(img_t, mats, shape, k_chunk=8)
+    for block in blocks:
+        for kc in k_chunks:
+            out = ops._run_padded(ko.backproject_onehot_kernel, img_t, mats,
+                                  shape, block, k_chunk=kc)
+            check("onehot", f"K3 block={block} k_chunk={kc}",
+                  "backproject_onehot_kernel", out, plain)
+            r = rel_rmse(out, k1)
+            require(r < ONEHOT_K1_BAR, f"K3 block={block} k_chunk={kc} is "
+                    f"{r:.2e} from K1 (bar {ONEHOT_K1_BAR})")
+            for nb in fused_nbs:
+                check("onehot", f"K4 block={block} k_chunk={kc} nb={nb}",
+                      "backproject_onehot_fused",
+                      ops._run_padded(ko.backproject_onehot_fused, img_t,
+                                      mats, shape, block, k_chunk=kc, nb=nb),
+                      plain)
+        for nb in NBS:
+            out = ops.backproject_onehot(img_t, mats, shape, nb=nb,
+                                         block=block, k_chunk=k_chunks[0],
+                                         proj_loop=True)
+            check("onehot", f"ops block={block} nb={nb}",
+                  "backproject_onehot_kernel" if npj % nb
+                  else "backproject_onehot_fused", out, plain)
+
+    # K5/K6: the banded kernel, on the block-padded volume; the device band
+    # schedule equals the same function run on the CPU
+    widened = 0
+    for block in blocks:
+        bi, bj = block
+        pshape = (-(-ni // bi) * bi, -(-nj // bj) * bj, nz)
+        for bw0 in bws:
+            for group in [1] + fused_nbs:
+                img_b, band, bw = kb.band_schedule(
+                    img_t, mats, pshape, block=block, bw=bw0, group=group)
+                widened += bw != bw0
+                n_bands = img_b.shape[1]
+                dev_band, dev_span = kb.tile_bands(
+                    mats, pshape[0], pshape[1], bi, bj, bw, n_bands, nw,
+                    group=group)
+                cpu_band, cpu_span = kb.tile_bands(
+                    mats.cpu(), pshape[0], pshape[1], bi, bj, bw, n_bands,
+                    nw, group=group)
+                require(torch.equal(dev_band.cpu(), cpu_band)
+                        and torch.equal(band, dev_band)
+                        and dev_span == cpu_span,
+                        f"device tile_bands differs from the CPU's at "
+                        f"block={block} bw={bw} group={group}")
+                plain = kb.backproject_banded_plain(
+                    img_b, mats, band, pshape, block=block, bw=bw, nw=nw,
+                    group=group)[:ni, :nj]
+                if group == 1:
+                    out = kb.backproject_banded_kernel(
+                        img_b, mats, band, pshape, block=block, bw=bw, nw=nw)
+                    kernel, label = "backproject_banded_kernel", "K5"
+                else:
+                    out = kb.backproject_banded_fused(
+                        img_b, mats, band, pshape, block=block, bw=bw, nw=nw,
+                        nb=group)
+                    kernel, label = "backproject_banded_fused", \
+                        f"K6 nb={group}"
+                check("banded", f"{label} block={block} bw={bw0}->{bw}",
+                      kernel, out[:ni, :nj], plain)
+        for nb in NBS:
+            out = ops.backproject_banded(img_t, mats, shape, nb=nb,
+                                         block=block, bw=bws[0],
+                                         proj_loop=True)
+            check("banded", f"ops block={block} nb={nb}",
+                  "backproject_banded_kernel" if npj % nb
+                  else "backproject_banded_fused", out, sub_plain)
+    for family, results in lines.items():
+        print(f"[kernels] {family}: volume {shape}, detector "
+              f"{geom.nw}x{geom.nh}, {npj} views: {len(results)} cases "
+              f"pass; worst: {max(results)[1]}")
+    return widened
 
 
 def phase_kernels_sweep(seed: int) -> dict:
     import dataclasses
     from repro_torch.core.geometry import standard_geometry
     errs = {name: 0.0 for name in KERNELS}
-    geoms = [standard_geometry(n=n, n_det=det, n_proj=npj)
-             for n, det, npj in SWEEP]
-    geoms += [dataclasses.replace(standard_geometry(n=nz, n_det=det,
-                                                    n_proj=npj), nx=16, ny=16)
+    cases = [(standard_geometry(n=n, n_det=det, n_proj=npj), BLOCKS,
+              K_CHUNKS, BWS) for n, det, npj in SWEEP]
+    cases += [(standard_geometry(n=n, n_det=det, n_proj=npj), BLOCKS,
+               K_CHUNKS, [bw]) for n, det, npj, bw in BANDED]
+    cases += [(dataclasses.replace(standard_geometry(n=nz, n_det=det,
+                                                     n_proj=npj),
+                                   nx=16, ny=16), BLOCKS, [128], [32])
               for nz, det, npj in DEPTHS]
-    for i, geom in enumerate(geoms):
-        _sweep_case(geom, seed + i, errs)
+    widened = 0
+    for i, case in enumerate(cases):
+        widened += _sweep_case(case[0], seed + i, errs, *case[1:])
+    print(f"[kernels] the band search widened bw in {widened} banded cases")
+    require(widened > 0, "no banded case ran the band-width doubling loop")
     return errs
+
+
+MAIN_RUNS = (
+    ("subline_pl nb=8", dict(variant="subline_pl"),
+     "backproject_subline_fused"),
+    ("subline_pl nb=1", dict(variant="subline_pl", nb=1),
+     "backproject_subline_kernel"),
+    ("onehot_pl nb=8", dict(variant="onehot_pl"),
+     "backproject_onehot_fused"),
+    ("onehot_pl nb=1", dict(variant="onehot_pl", nb=1),
+     "backproject_onehot_kernel"),
+    ("banded_pl nb=8", dict(variant="banded_pl"),
+     "backproject_banded_fused"),
+    ("banded_pl nb=1", dict(variant="banded_pl", nb=1),
+     "backproject_banded_kernel"),
+)
+# line boxes (i0, j0) of the P5 volume where K3/K4 are held against the
+# plain one-hot version (the whole volume would take the plain version
+# minutes per projection): a corner, the centre, an edge
+ONEHOT_BOXES = ((0, 0), (252, 252), (504, 0))
+BOX = 8
 
 
 def phase_p5(seed: int, errs: dict) -> dict:
@@ -198,8 +369,8 @@ def phase_p5(seed: int, errs: dict) -> dict:
     from repro_torch.core.backproject import transpose_projections
     from repro_torch.core.filtering import fdk_filter_chunk
     from repro_torch.core.geometry import projection_matrices
-    from repro_torch.kernels import backproject_subline as ks
     from repro_torch.kernels.ref import backproject_ref
+    ks, ko, kb = launch_modules()
 
     prob = get_problem("P5")
     geom = prob.geometry()
@@ -211,99 +382,204 @@ def phase_p5(seed: int, errs: dict) -> dict:
           f"{prob.updates:.3e} voxel-view updates")
 
     # ---- the main path, driven through the public entry point -------------
-    launches = {}
+    main_launches = {}
     vols = {}
-    for label, opts, kernel in (
-            ("subline_pl nb=8", ReconOptions(variant="subline_pl"),
-             "backproject_subline_fused"),
-            ("subline_pl nb=1", ReconOptions(variant="subline_pl", nb=1),
-             "backproject_subline_kernel")):
-        ks.reset_launches()
-        vols[label] = repro_torch.reconstruct(p_host, geom, options=opts)
+    for label, opts, kernel in MAIN_RUNS:
+        reset_launches()
+        t0 = time.perf_counter()
+        vols[label] = repro_torch.reconstruct(p_host, geom,
+                                              options=ReconOptions(**opts))
         torch.cuda.synchronize()
-        launches[kernel] = ks.LAUNCHES[kernel]
-        print(f"[P5] reconstruct {label}: launches {dict(ks.LAUNCHES)}")
-        require(ks.LAUNCHES[kernel] > 0,
+        n = launches()
+        main_launches[kernel] = n[kernel]
+        print(f"[P5] reconstruct {label}: {time.perf_counter() - t0:.3f} s "
+              f"(host clock, input from the host), launches "
+              f"{ {k: v for k, v in n.items() if v} }")
+        require(n[kernel] > 0,
                 f"the main path ({label}) never launched {kernel}")
-    ks.reset_launches()
+        require(sum(n.values()) == n[kernel],
+                f"the main path ({label}) launched other kernels: {n}")
+    reset_launches()
     plain_vol = repro_torch.reconstruct(
         p, geom, options=ReconOptions(variant="algorithm1_mp"))
     torch.cuda.synchronize()
-    require(sum(ks.LAUNCHES.values()) == 0,
+    require(sum(launches().values()) == 0,
             "the algorithm1_mp path launched a kernel")
+    main = vols["subline_pl nb=8"]
     for label, vol in vols.items():
         require(tuple(vol.shape) == geom.volume_shape_zyx
                 and bool(torch.isfinite(vol).all()),
                 f"{label}: non-finite values or wrong shape")
         r = rel_rmse(vol, plain_vol)
-        print(f"[P5] {label} vs algorithm1_mp on the card: rel_rmse {r:.3e}")
-        require(r < BAR, f"{label} disagrees with algorithm1_mp: {r:.3e}")
+        r_main = rel_rmse(vol, main)
+        print(f"[P5] {label}: rel_rmse {r:.3e} vs algorithm1_mp, "
+              f"{r_main:.3e} vs subline_pl nb=8 on the card; bitwise equal "
+              f"to it: {bool(torch.equal(vol, main))}")
+        require(r < BAR and r_main < BAR,
+                f"{label} disagrees with algorithm1_mp or subline_pl")
     require(torch.equal(vols["subline_pl nb=8"], vols["subline_pl nb=1"]),
             "K1 and K2 main paths are not bitwise equal")
-    del vols, plain_vol
+    del vols, main, plain_vol
 
     # ---- each kernel at the main path's shape against its plain version ---
     img_t = transpose_projections(fdk_filter_chunk(p, geom, geom.n_proj))
     mats = projection_matrices(geom)
+    block = (4, 8)
+    bands = {}
+    for kernel, group in (("backproject_banded_kernel", 1),
+                          ("backproject_banded_fused", 8)):
+        img_b, band, bw = kb.band_schedule(img_t, mats, shape, block=block,
+                                           bw=32, group=group)
+        bands[kernel] = (img_b, band, bw, group)
+        print(f"[P5] band schedule group={group}: bw 32 -> {bw}, img_b "
+              f"{tuple(img_b.shape)} ({img_b.numel() * 4 / 1e9:.3f} GB), "
+              f"band {tuple(band.shape)}")
+
+    def banded(kernel):
+        img_b, band, bw, group = bands[kernel]
+        if group == 1:
+            return lambda: kb.backproject_banded_kernel(
+                img_b, mats, band, shape, block=block, bw=bw, nw=geom.nw)
+        return lambda: kb.backproject_banded_fused(
+            img_b, mats, band, shape, block=block, bw=bw, nw=geom.nw,
+            nb=group)
+
     calls = {
         "backproject_subline_kernel":
             lambda: ks.backproject_subline_kernel(img_t, mats, shape),
         "backproject_subline_fused":
             lambda: ks.backproject_subline_fused(img_t, mats, shape, nb=8),
+        "backproject_onehot_kernel":
+            lambda: ko.backproject_onehot_kernel(img_t, mats, shape),
+        "backproject_onehot_fused":
+            lambda: ko.backproject_onehot_fused(img_t, mats, shape, nb=8),
+        "backproject_banded_kernel": banded("backproject_banded_kernel"),
+        "backproject_banded_fused": banded("backproject_banded_fused"),
     }
     plain = ks.backproject_subline_plain(img_t, mats, shape)
     ref = backproject_ref(img_t, mats, shape)
     r = rel_rmse(plain, ref)
-    print(f"[P5] plain version vs oracle: rel_rmse {r:.3e}")
+    print(f"[P5] sub-line plain version vs oracle: rel_rmse {r:.3e}")
     require(r < BAR, "the plain version disagrees with the oracle at P5")
+    del ref
+    plains = {"backproject_subline_kernel": plain,
+              "backproject_subline_fused": plain}
+    for kernel, (img_b, band, bw, group) in bands.items():
+        plains[kernel] = kb.backproject_banded_plain(
+            img_b, mats, band, shape, block=block, bw=bw, nw=geom.nw,
+            group=group)
+        r = rel_rmse(plains[kernel], plain)
+        print(f"[P5] banded plain version (group={group}) vs sub-line "
+              f"plain: rel_rmse {r:.3e}")
+        require(r < BAR, "the banded plain version disagrees at P5")
     for name, call in calls.items():
         out = call()
         torch.cuda.synchronize()
-        r = rel_rmse(out, plain)
-        errs[name] = max(errs[name], float((out - plain).abs().max()))
-        print(f"[P5] {KERNELS[name][0]} vs plain: rel_rmse {r:.3e}, max abs "
-              f"{errs[name]:.3e} (max |plain| {float(plain.abs().max()):.3e})")
+        if name.startswith("backproject_onehot"):
+            # the whole volume against the sub-line plain version (the same
+            # function), line boxes against the one-hot plain version
+            r = rel_rmse(out, plain)
+            for i0, j0 in ONEHOT_BOXES:
+                box = ko.backproject_onehot_plain(
+                    img_t, mats, (BOX, BOX, geom.nz), origin=(i0, j0))
+                got = out[i0:i0 + BOX, j0:j0 + BOX]
+                r_box = rel_rmse(got, box)
+                errs[name] = max(errs[name], float((got - box).abs().max()))
+                require(r_box < BAR, f"{name} disagrees with the one-hot "
+                        f"plain version on lines ({i0}, {j0}): {r_box:.3e}")
+            what = (f"vs sub-line plain {r:.3e}, vs one-hot plain on "
+                    f"{len(ONEHOT_BOXES)} {BOX}x{BOX}-line boxes: max abs "
+                    f"{errs[name]:.3e}")
+        else:
+            r = rel_rmse(out, plains[name])
+            errs[name] = max(errs[name],
+                             float((out - plains[name]).abs().max()))
+            what = f"vs plain: rel_rmse {r:.3e}, max abs {errs[name]:.3e}"
+        print(f"[P5] {KERNELS[name][0]} {what} (max |plain| "
+              f"{float(plain.abs().max()):.3e})")
         require(r < BAR, f"{name} disagrees with its plain version at P5")
-    del plain, ref
+    del plains, out
 
     # ---- times --------------------------------------------------------------
-    n_bytes = 4 * (img_t.numel() + mats.numel() + geom.nx * geom.ny * geom.nz)
     flops = FLOPS_PER_UPDATE * prob.updates
-    bound_ms = max(flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES) * 1e3
-    bound_by = ("operations" if flops / PEAK_FP32_FLOPS > n_bytes / PEAK_BYTES
-                else "bytes")
-    print(f"[P5] bound: {flops:.3e} FLOP / 67 TFLOP/s = "
-          f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms, {n_bytes:.3e} B / "
-          f"3.35 TB/s = {n_bytes / PEAK_BYTES * 1e3:.3f} ms -> "
-          f"{bound_ms:.3f} ms ({bound_by})")
-    times = {name: timed(call) for name, call in calls.items()}
-    plain_ms = timed(lambda: ks.backproject_subline_plain(img_t, mats, shape))
-    for name, ms in times.items():
-        print(f"[P5] {KERNELS[name][0]}: {ms:.3f} ms, "
-              f"{prob.updates / ms / 1e6:.1f} GUPS, {bound_ms / ms:.3f} of "
-              f"the bound")
+    vol_bytes = 4 * geom.nx * geom.ny * geom.nz
+    in_bytes = {name: 4 * (img_t.numel() + mats.numel())
+                for name in calls}
+    for kernel, (img_b, band, _, _) in bands.items():
+        in_bytes[kernel] = 4 * (img_b.numel() + mats.numel() + band.numel())
+    bounds = {}
+    for name in calls:
+        n_bytes = in_bytes[name] + vol_bytes
+        t_op, t_b = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES
+        bounds[name] = (max(t_op, t_b) * 1e3,
+                        "operations" if t_op > t_b else "bytes")
+        print(f"[P5] bound {KERNELS[name][0]}: {flops:.3e} FLOP / 67 TFLOP/s "
+              f"= {t_op * 1e3:.3f} ms, {n_bytes:.3e} B / 3.35 TB/s = "
+              f"{t_b * 1e3:.3f} ms -> {bounds[name][0]:.3f} ms "
+              f"({bounds[name][1]})")
+    onehot_flops = 2.0 * geom.nx * geom.ny * geom.nz * geom.nh * geom.n_proj
+    print(f"[P5] the one-hot design's own work: {onehot_flops:.3e} FLOP "
+          f"(2*nh per sample) / 67 TFLOP/s = "
+          f"{onehot_flops / PEAK_FP32_FLOPS * 1e3:.3f} ms")
+    times = {}
+    for name, call in calls.items():
+        times[name], how = timed_long(call)
+        print(f"[P5] {KERNELS[name][0]}: {times[name]:.3f} ms ({how}), "
+              f"{prob.updates / times[name] / 1e6:.1f} GUPS, "
+              f"{bounds[name][0] / times[name]:.4f} of the bound")
     for nb in (2, 4):        # K2's staging depth: nb projections per step
         ms = timed(lambda: ks.backproject_subline_fused(img_t, mats, shape,
                                                         nb=nb))
         print(f"[P5] K2 at nb={nb}: {ms:.3f} ms")
-    print(f"[P5] plain version: {plain_ms:.3f} ms")
+    plain_ms = {}
+    ms, how = timed_long(lambda: ks.backproject_subline_plain(img_t, mats,
+                                                              shape))
+    plain_ms["backproject_subline_kernel"] = \
+        plain_ms["backproject_subline_fused"] = ms
+    print(f"[P5] sub-line plain version: {ms:.3f} ms ({how})")
+    for kernel, (img_b, band, bw, group) in bands.items():
+        plain_ms[kernel], how = timed_long(
+            lambda: kb.backproject_banded_plain(
+                img_b, mats, band, shape, block=block, bw=bw, nw=geom.nw,
+                group=group))
+        print(f"[P5] banded plain version (group={group}): "
+              f"{plain_ms[kernel]:.3f} ms ({how})")
+    print("[P5] one-hot plain version: not run at P5. It builds the "
+          "two-hot matrix A for every (line, plane, row): 6.9e10 entries "
+          "per projection, 3.5e13 in all, in blocks of "
+          f"{ko.PLAIN_BLOCK_BYTES >> 20} MiB, which would take the card "
+          "minutes per projection. It is held against the kernel on line "
+          "boxes above; its time stays not measured.")
+    plain_ms["backproject_onehot_kernel"] = None
+    plain_ms["backproject_onehot_fused"] = None
+    for group in (1, 8):
+        ms = timed(lambda: kb.band_schedule(img_t, mats, shape, block=block,
+                                            bw=32, group=group))
+        bw = bands["backproject_banded_kernel" if group == 1
+                   else "backproject_banded_fused"][2]
+        ms_layout = timed(lambda: kb.band_layout(img_t, bw))
+        print(f"[P5] band schedule group={group} (tile_bands search + "
+              f"band_layout, bw -> {bw}): {ms:.3f} ms per call, of which "
+              f"band_layout {ms_layout:.3f} ms")
     filter_ms = timed(lambda: fdk_filter_chunk(p, geom, geom.n_proj))
     print(f"[P5] filter (fdk_filter_chunk, whole set): {filter_ms:.3f} ms")
-    recon_ms = timed(lambda: repro_torch.reconstruct(
-        p, geom, options=ReconOptions(variant="subline_pl")))
-    print(f"[P5] reconstruct subline_pl (nb=8) from device projections: "
-          f"{recon_ms:.3f} ms, {prob.updates / recon_ms / 1e6:.1f} GUPS")
-    profile_reconstruct(p, geom)
+    for variant in ("subline_pl", "onehot_pl", "banded_pl"):
+        ms, how = timed_long(lambda: repro_torch.reconstruct(
+            p, geom, options=ReconOptions(variant=variant)))
+        print(f"[P5] reconstruct {variant} (nb=8) from device projections: "
+              f"{ms:.3f} ms ({how}), {prob.updates / ms / 1e6:.1f} GUPS")
+    profile_reconstruct(p, geom, "subline_pl")
+    profile_reconstruct(p, geom, "banded_pl")
     return {name: {"name": KERNELS[name][0], "route": "cuda",
-                   "source": SOURCE, "replaces": KERNELS[name][1],
-                   "launches": launches[name], "max_abs_err": errs[name],
-                   "ms": times[name], "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None}
+                   "source": KERNELS[name][2], "replaces": KERNELS[name][1],
+                   "launches": main_launches[name],
+                   "max_abs_err": errs[name], "ms": times[name],
+                   "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+                   "bound_by": bounds[name][1], "library_ms": None}
             for name in KERNELS}
 
 
-def profile_reconstruct(p, geom) -> None:
+def profile_reconstruct(p, geom, variant: str) -> None:
     """Where the time of one warm P5 reconstruction goes on the card:
     device time by kernel from torch.profiler, and the device's idle
     share of the host-clock wall."""
@@ -313,7 +589,7 @@ def profile_reconstruct(p, geom) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     def run():
-        return repro_torch.reconstruct(p, geom, variant="subline_pl")
+        return repro_torch.reconstruct(p, geom, variant=variant)
 
     run()
     torch.cuda.synchronize()
@@ -330,10 +606,10 @@ def profile_reconstruct(p, geom) -> None:
                 e.device_time_total / 1e3
     busy_ms = sum(by_name.values())
     if busy_ms == 0.0:
-        print("[profile] the profiler recorded no device time: device "
-              "breakdown not measured")
+        print(f"[profile] {variant}: the profiler recorded no device time: "
+              f"device breakdown not measured")
         return
-    print(f"[profile] reconstruct subline_pl at P5: wall {wall_ms:.3f} ms, "
+    print(f"[profile] reconstruct {variant} at P5: wall {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{1.0 - busy_ms / wall_ms:.4f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:

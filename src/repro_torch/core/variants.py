@@ -19,6 +19,11 @@ the hand-written CUDA kernel):
                      planner's slab-safe fallback)
     algorithm1_mp    O1..O5 (paper Algorithm 1; nb batching)
     subline_pl       CUDA: O1..O5, kernels/csrc/backproject_subline.cu
+    onehot_pl        CUDA: subline_pl with stage 2 as a two-hot
+                     contraction, kernels/csrc/backproject_onehot.cu
+    banded_pl        CUDA: subline_pl reading each tile's band of
+                     detector columns, the kBanded instance of
+                     kernels/csrc/backproject_subline.cu
 
 The other variants of the JAX package wait in ROADMAP.md.
 """
@@ -46,6 +51,25 @@ def _subline_cuda(img_t, mat, vol_shape_xyz, nb: int = 8,
     return ops.backproject_subline(img_t, mat, vol_shape_xyz, nb=nb,
                                    block=block, interpret=interpret,
                                    proj_loop=proj_loop, device=img_t.device)
+
+
+def _onehot_cuda(img_t, mat, vol_shape_xyz, nb: int = 8,
+                 interpret: bool = True, block=(4, 8), k_chunk: int = 128,
+                 proj_loop: bool = False, **_):
+    from repro_torch.kernels import ops
+    return ops.backproject_onehot(img_t, mat, vol_shape_xyz, nb=nb,
+                                  block=block, k_chunk=k_chunk,
+                                  interpret=interpret, proj_loop=proj_loop,
+                                  device=img_t.device)
+
+
+def _banded_cuda(img_t, mat, vol_shape_xyz, nb: int = 8,
+                 interpret: bool = True, block=(4, 8), bw: int = 32,
+                 proj_loop: bool = False, **_):
+    from repro_torch.kernels import ops
+    return ops.backproject_banded(img_t, mat, vol_shape_xyz, nb=nb,
+                                  block=block, bw=bw, interpret=interpret,
+                                  proj_loop=proj_loop, device=img_t.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,11 +132,25 @@ REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
                options=_PL_OPTS,
                slab_safe_fallback="subline_batch_mp", backend="cuda",
                proj_loop=True),
+    KernelSpec("onehot_pl", _onehot_cuda,
+               ("transpose", "share", "symmetry", "subline", "batch",
+                "localmem", "prefetch", "mxu-interp"),
+               options=_PL_OPTS | {"k_chunk"},
+               slab_safe_fallback="subline_batch_mp", backend="cuda",
+               proj_loop=True),
+    # the band schedule is recomputed from the matrices on every call,
+    # as in the reference
+    KernelSpec("banded_pl", _banded_cuda,
+               ("transpose", "share", "symmetry", "subline", "batch",
+                "localmem", "prefetch", "banded-prefetch"),
+               options=_PL_OPTS | {"bw"},
+               slab_safe_fallback="subline_batch_mp", backend="cuda",
+               proj_loop=True),
 )}
 
 #: variants of the JAX package that this package does not carry yet
 UNPORTED = ("baseline", "transpose_mp", "share_mp", "symmetry_mp",
-            "subline_mp", "onehot_pl", "banded_pl")
+            "subline_mp")
 
 
 def _validate_registry() -> None:
@@ -148,7 +186,7 @@ def get_spec(name: str) -> KernelSpec:
     if name in UNPORTED:
         raise KeyError(
             f"back-projection variant {name!r} is not ported to repro_torch "
-            f"yet (see ROADMAP.md, queue 1 item 2 and queue 2); have "
+            f"yet (see ROADMAP.md, queue 1 item 2); have "
             f"{sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(f"unknown back-projection variant {name!r}; "

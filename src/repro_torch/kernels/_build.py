@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface, which ``ctypes`` loads. The library lands in
 ``kernels/build/<name>-<hash>/`` (ignored by git), keyed by a hash of the
-source and the flags, so a changed source builds anew and an unchanged
-one is reused. Nothing here runs at import time: this module is imported
+source, every shared header ``csrc/*.cuh`` and the flags, so a changed
+source or header builds anew and an unchanged one is reused. Nothing here runs at import time: this module is imported
 on machines without ``nvcc``, where only a build attempt fails.
 """
 
@@ -48,9 +48,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 

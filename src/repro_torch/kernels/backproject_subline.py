@@ -66,6 +66,8 @@ def _lib():
         lib.bp_subline_smem_bytes.restype = ctypes.c_size_t
         lib.bp_subline_max_khp.argtypes = []
         lib.bp_subline_max_khp.restype = ci
+        lib.bp_banded_launch.argtypes = [vp] * 4 + [ci] * 12 + [vp]
+        lib.bp_banded_launch.restype = ci
         lib.bp_cuda_error_string.argtypes = [ci]
         lib.bp_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -114,6 +116,53 @@ def _interp(sm: torch.Tensor, y: torch.Tensor, nh: int) -> torch.Tensor:
     return torch.where(valid, v, 0.0)
 
 
+def _line_grid(ni: int, nj: int, device, origin=(0, 0)) -> tuple:
+    """The (i, j) index of every voxel line of the ni x nj box at
+    ``origin``, flat in i*nj + j order, as float32 vectors."""
+    i = torch.arange(origin[0], origin[0] + ni, dtype=torch.float32,
+                     device=device)
+    j = torch.arange(origin[1], origin[1] + nj, dtype=torch.float32,
+                     device=device)
+    return (i[:, None].expand(ni, nj).reshape(-1),
+            j[None, :].expand(ni, nj).reshape(-1))
+
+
+def _line_scalars(m: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+                  nw: int) -> tuple:
+    """The k-invariant scalars of every line for one matrix ``m``: the
+    validity mask ``ok`` (z > 0 and 0 <= floor(x) <= nw-2), f = 1/z, the
+    column ``ixc`` (0 where invalid) and the blend weight ``dx``."""
+    z = m[2, 0] * i + m[2, 1] * j + m[2, 3]
+    f = 1.0 / z
+    x = (m[0, 0] * i + m[0, 1] * j + m[0, 3]) * f
+    x0 = torch.floor(x)
+    ok = (z > 0) & (x0 >= 0) & (x0 <= nw - 2)
+    dx = torch.where(ok, x - x0, 0.0)
+    ixc = torch.where(ok, x0, 0.0).long()
+    return ok, f, ixc, dx
+
+
+def _accumulate(vol: torch.Tensor, sm: torch.Tensor, m: torch.Tensor,
+                i: torch.Tensor, j: torch.Tensor, f: torch.Tensor,
+                w: torch.Tensor, interp=_interp) -> None:
+    """Stage 2 of one projection into ``vol`` (lines, nz): ``interp`` of
+    the sub-lines ``sm`` at y = a + b*k over k < khp = nz - nz//2, and at
+    the O3 mirror (nh-1) - y for the planes k >= khp, times ``w``."""
+    nz = vol.shape[1]
+    nh = sm.shape[1]
+    kh = nz // 2
+    khp = nz - kh
+    k = torch.arange(khp, dtype=torch.float32, device=vol.device)
+    a = (m[1, 0] * i + m[1, 1] * j + m[1, 3]) * f
+    b = m[1, 2] * f
+    y = a[:, None] + b[:, None] * k                         # (lines, khp)
+    w = w[:, None]
+    vol[:, :khp] += interp(sm, y, nh) * w
+    if kh:
+        y_m = (nh - 1.0) - y[:, :kh]                        # O3 mirror
+        vol[:, khp:] += (interp(sm, y_m, nh) * w).flip(1)
+
+
 def backproject_subline_plain(img_t: torch.Tensor, mat: torch.Tensor,
                               vol_shape_xyz: Sequence[int]) -> torch.Tensor:
     """The kernel's function in plain PyTorch, per projection: the stage-1
@@ -121,45 +170,46 @@ def backproject_subline_plain(img_t: torch.Tensor, mat: torch.Tensor,
     buffer, then the y-affine stage 2 over k < khp and the O3 mirror
     (nh-1) - y for the planes k >= khp."""
     ni, nj, nz = (int(v) for v in vol_shape_xyz)
-    _, nw, nh = img_t.shape
-    kh = nz // 2
-    khp = nz - kh
-    dev = img_t.device
-    i = torch.arange(ni, dtype=torch.float32, device=dev)
-    j = torch.arange(nj, dtype=torch.float32, device=dev)
-    i = i[:, None].expand(ni, nj).reshape(-1)
-    j = j[None, :].expand(ni, nj).reshape(-1)
-    k = torch.arange(khp, dtype=torch.float32, device=dev)
-    vol = torch.zeros((ni * nj, nz), dtype=torch.float32, device=dev)
+    nw = img_t.shape[1]
+    i, j = _line_grid(ni, nj, img_t.device)
+    vol = torch.zeros((ni * nj, nz), dtype=torch.float32,
+                      device=img_t.device)
     for s in range(img_t.shape[0]):
         m = mat[s]
-        z = m[2, 0] * i + m[2, 1] * j + m[2, 3]
-        f = 1.0 / z
-        x = (m[0, 0] * i + m[0, 1] * j + m[0, 3]) * f
-        x0 = torch.floor(x)
-        ok = (z > 0) & (x0 >= 0) & (x0 <= nw - 2)
-        dx = torch.where(ok, x - x0, 0.0)
-        w = torch.where(ok, f * f, 0.0)[:, None]
-        ixc = torch.where(ok, x0, 0.0).long()
+        ok, f, ixc, dx = _line_scalars(m, i, j, nw)
         sm = (img_t[s][ixc] * (1.0 - dx)[:, None]
               + img_t[s][ixc + 1] * dx[:, None])           # stage 1
-        a = (m[1, 0] * i + m[1, 1] * j + m[1, 3]) * f
-        b = m[1, 2] * f
-        y = a[:, None] + b[:, None] * k                     # (lines, khp)
-        vol[:, :khp] += _interp(sm, y, nh) * w
-        if kh:
-            y_m = (nh - 1.0) - y[:, :kh]                    # O3 mirror
-            vol[:, khp:] += (_interp(sm, y_m, nh) * w).flip(1)
+        _accumulate(vol, sm, m, i, j, f, torch.where(ok, f * f, 0.0))
     return vol.reshape(ni, nj, nz)
+
+
+def launch_error(name: str, lib, err: int) -> RuntimeError:
+    return RuntimeError(
+        f"{name} launch failed: CUDA error {err} "
+        f"({lib.bp_cuda_error_string(err).decode()})")
+
+
+def max_stage(nb: int, fits) -> int:
+    """Deepest staging (<= nb) for which ``fits(stage)`` (the block's
+    buffers fit its shared memory). The depth changes no result: each
+    voxel's sum is taken in projection order whatever the staging."""
+    stage = nb
+    while stage > 1 and not fits(stage):
+        stage -= 1
+    return stage
+
+
+def check_depth(lib, nz: int) -> None:
+    if nz - nz // 2 > lib.bp_subline_max_khp():
+        raise ValueError(f"nz={nz} exceeds the kernel's largest depth "
+                         f"{2 * lib.bp_subline_max_khp()}")
 
 
 def _launch(img_t, mat, shape, stage: int) -> torch.Tensor:
     lib = _lib()
     ni, nj, nz = shape
     n_proj, nw, nh = img_t.shape
-    if nz - nz // 2 > lib.bp_subline_max_khp():
-        raise ValueError(f"nz={nz} exceeds the kernel's largest depth "
-                         f"{2 * lib.bp_subline_max_khp()}")
+    check_depth(lib, nz)
     if lib.bp_subline_smem_bytes(nh, stage) > SMEM_PER_BLOCK:
         raise ValueError(f"nh={nh} needs more shared memory per block than "
                          f"the card has, even at one staged projection")
@@ -170,21 +220,14 @@ def _launch(img_t, mat, shape, stage: int) -> torch.Tensor:
             img_t.data_ptr(), mat.data_ptr(), out.data_ptr(), n_proj, nw, nh,
             ni, nj, nz, stage, stream)
     if err != 0:
-        raise RuntimeError(
-            f"backproject_subline launch failed: CUDA error {err} "
-            f"({lib.bp_cuda_error_string(err).decode()})")
+        raise launch_error("backproject_subline", lib, err)
     return out
 
 
 def _max_stage(nh: int, nb: int) -> int:
-    """Deepest staging (<= nb) whose buffers fit one block's shared
-    memory. The depth changes no result: each voxel's sum is taken in
-    projection order whatever the staging."""
     lib = _lib()
-    stage = nb
-    while stage > 1 and lib.bp_subline_smem_bytes(nh, stage) > SMEM_PER_BLOCK:
-        stage -= 1
-    return stage
+    return max_stage(
+        nb, lambda st: lib.bp_subline_smem_bytes(nh, st) <= SMEM_PER_BLOCK)
 
 
 def backproject_subline_kernel(img_t: torch.Tensor, mat: torch.Tensor,

@@ -1,14 +1,22 @@
 // Sub-line cone-beam back-projection for Hopper (sm_90a): the paper's
 // Algorithm 1 (hoisting O2, O3 mirror, sub-line buffer O4, nb staging O5).
-// Replaces the Pallas kernels backproject_subline_pallas (K1) and
-// backproject_subline_fused (K2) of src/repro/kernels/backproject_subline.py;
-// ../backproject_subline.py wraps it and says what bounds it on an H100.
+// Replaces four Pallas kernels of the JAX package:
+//   K1 backproject_subline_pallas, K2 backproject_subline_fused
+//      (src/repro/kernels/backproject_subline.py), kBanded = false;
+//   K5 _banded_call, K6 _banded_call_fused
+//      (src/repro/kernels/backproject_banded.py), kBanded = true.
+// ../backproject_subline.py and ../backproject_banded.py wrap it and say
+// what bounds it on an H100.
 //
 // Inputs, all float32 and contiguous:
-//   img_t (n_proj, nw, nh)  filtered projections, detector columns contiguous
-//   mat   (n_proj, 3, 4)    index-space projection matrices
+//   img   (n_proj, nw, nh)              filtered projections, detector
+//                                       columns contiguous (K1/K2), or
+//         (n_proj, n_bands, 2*bw, nh)   the same in overlapping bands (K5/K6)
+//   mat   (n_proj, 3, 4)                index-space projection matrices
+//   band  (n_proj / group, ni/bi, nj/bj) int32 band of each (projection
+//                                       group, tile); K5/K6 only
 // Output:
-//   out   (ni, nj, nz)      vol_t[i][j][k], written exactly once
+//   out   (ni, nj, nz)                  vol_t[i][j][k], written exactly once
 //
 // Work split. A block of 8 warps owns 8 consecutive voxel lines (flat line
 // id i*nj + j) and the whole k range; warp w owns line w. The block walks
@@ -23,61 +31,65 @@
 // shared-memory rows. Stage 2 (Fig. 3b) then strides the lanes over
 // k < khp = nz - nz/2 and interpolates at y = a + b*k for the direct half
 // and at (nh-1) - y for the mirrored plane nz-1-k when k < nz/2 (O3).
-// The per-line scalars are computed in the order of the plain version with
-// round-to-nearest intrinsics, so FMA contraction cannot move floor(x),
-// floor(y) or the validity masks across an edge relative to it.
+//
+// Banded (K5/K6): the only change is where stage 1 reads its two columns.
+// Projection s of tile (i/bi, j/bj) reads band b = band[s/group][ti][tj],
+// the 2*bw detector columns from b*bw, at rel = floor(x) - b*bw; a line
+// whose rel misses [0, 2*bw-2] is dropped for that projection. The band
+// comes from the projection's group (group = nb for K6, 1 for K5), never
+// from the staging step, whose depth shared memory may cap below nb. The
+// line's validity is still decided against the TRUE detector width nw.
 
-#include <cuda_runtime.h>
+#include "backproject_common.cuh"
 
 namespace {
 
-constexpr int kLines = 8;                 // voxel lines per block
-constexpr int kWarp = 32;
-constexpr int kThreads = kLines * kWarp;  // one warp per line
+using bp::kLines;
+using bp::kThreads;
+using bp::kWarp;
 
-// k-invariant scalars of one voxel line for one projection (O2). Returns
-// whether the line is valid (z > 0 and 0 <= floor(x) <= nw-2).
-__device__ __forceinline__ bool line_scalars(const float* m, float fi, float fj,
-                                             int nw, float& f, int& ixc,
-                                             float& dx) {
-  const float z = __fadd_rn(__fadd_rn(__fmul_rn(m[8], fi), __fmul_rn(m[9], fj)),
-                            m[11]);
-  f = __fdiv_rn(1.0f, z);
-  const float x = __fmul_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(m[0], fi), __fmul_rn(m[1], fj)), m[3]), f);
-  const float x0 = floorf(x);
-  dx = __fsub_rn(x, x0);
-  const bool ok = (z > 0.0f) && (x0 >= 0.0f) && (x0 <= (float)(nw - 2));
-  ixc = ok ? (int)x0 : 0;
-  return ok;
+struct BandArgs {
+  const int* band;   // (n_proj / group, n_ti, n_tj); null for K1/K2
+  int bw, n_bands, bi, bj, n_ti, n_tj, group;
+};
+
+// First detector column of a valid line's sub-line in projection s, or
+// null when the line is dropped for it (K5/K6: the band misses floor(x)).
+template <bool kBanded>
+__device__ __forceinline__ const float* columns(const float* img,
+                                                const BandArgs& B, int s,
+                                                int ti, int tj, int ixc,
+                                                int nw, int nh) {
+  if constexpr (!kBanded) {
+    return img + ((size_t)s * nw + ixc) * nh;
+  } else {
+    const int b = __ldg(B.band + ((size_t)(s / B.group) * B.n_ti + ti) * B.n_tj
+                        + tj);
+    const int rel = ixc - b * B.bw;
+    if (rel < 0 || rel > 2 * B.bw - 2) return nullptr;
+    return img + (((size_t)s * B.n_bands + b) * (2 * B.bw) + rel) * nh;
+  }
 }
 
-// Linear interpolation inside one sub-line at row coordinate y; 0 when
-// floor(y) falls outside [0, nh-2].
-__device__ __forceinline__ float interp(const float* row, float y,
-                                        float ylast) {
-  const float y0 = floorf(y);
-  if (!(y0 >= 0.0f && y0 <= ylast)) return 0.0f;
-  const int iy = (int)y0;
-  const float dy = y - y0;
-  return row[iy] * (1.0f - dy) + row[iy + 1] * dy;
-}
-
-template <int KPT>
+template <int KPT, bool kBanded>
 __global__ void __launch_bounds__(kThreads)
-subline_kernel(const float* __restrict__ img_t, const float* __restrict__ mat,
+subline_kernel(const float* __restrict__ img, const float* __restrict__ mat,
                float* __restrict__ out, int n_proj, int nw, int nh, int ni,
-               int nj, int nz, int stage) {
+               int nj, int nz, int stage, BandArgs band) {
   extern __shared__ float smem[];
   float* smat = smem;                                  // stage * 12
-  float* sbuf = smem + ((stage * 12 + 3) & ~3);        // kLines * stage * nh
+  float* sbuf = smem + bp::mat_floats(stage);          // kLines * stage * nh
 
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const long long line = (long long)blockIdx.x * kLines + warp;
   const bool active = line < (long long)ni * nj;       // ragged last block
-  const float fi = active ? (float)(line / nj) : 0.0f;
-  const float fj = active ? (float)(line % nj) : 0.0f;
+  const int li = active ? (int)(line / nj) : 0;
+  const int lj = active ? (int)(line % nj) : 0;
+  const float fi = (float)li;
+  const float fj = (float)lj;
+  const int ti = kBanded ? li / band.bi : 0;
+  const int tj = kBanded ? lj / band.bj : 0;
   const int kh = nz / 2;          // mirrored half
   const int khp = nz - kh;        // direct half (kh + 1 when nz is odd)
   const float ylast = (float)(nh - 2);
@@ -104,14 +116,11 @@ subline_kernel(const float* __restrict__ img_t, const float* __restrict__ mat,
     for (int b = 0; b < nbs; ++b) {
       float f, dx;
       int ixc;
-      if (!line_scalars(smat + b * 12, fi, fj, nw, f, ixc, dx)) continue;
-      const float* c0 = img_t + ((size_t)(s0 + b) * nw + ixc) * nh;
-      const float* c1 = c0 + nh;
-      float* row = buf + (size_t)b * nh;
-      const float wx = 1.0f - dx;
-#pragma unroll 4
-      for (int y = lane; y < nh; y += kWarp)
-        row[y] = __ldg(c0 + y) * wx + __ldg(c1 + y) * dx;
+      if (!bp::line_scalars(smat + b * 12, fi, fj, nw, f, ixc, dx)) continue;
+      const float* c0 =
+          columns<kBanded>(img, band, s0 + b, ti, tj, ixc, nw, nh);
+      if (c0 == nullptr) continue;
+      bp::blend_columns(c0, dx, nh, lane, buf + (size_t)b * nh);
     }
     __syncwarp();
 
@@ -120,20 +129,21 @@ subline_kernel(const float* __restrict__ img_t, const float* __restrict__ mat,
       const float* m = smat + b * 12;
       float f, dx;
       int ixc;
-      if (!line_scalars(m, fi, fj, nw, f, ixc, dx)) continue;
-      const float w = __fmul_rn(f, f);
-      const float a = __fmul_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(m[4], fi), __fmul_rn(m[5], fj)), m[7]),
-          f);
-      const float bk = __fmul_rn(m[6], f);
+      if (!bp::line_scalars(m, fi, fj, nw, f, ixc, dx)) continue;
+      if (kBanded && columns<kBanded>(img, band, s0 + b, ti, tj, ixc, nw,
+                                      nh) == nullptr)
+        continue;
+      float a, bk, w;
+      bp::y_affine(m, fi, fj, f, a, bk, w);
       const float* row = buf + (size_t)b * nh;
 #pragma unroll
       for (int r = 0; r < KPT; ++r) {
         const int k = lane + r * kWarp;
         if (k < khp) {
           const float y = __fadd_rn(a, __fmul_rn(bk, (float)k));
-          acc_lo[r] += interp(row, y, ylast) * w;
-          if (k < kh) acc_hi[r] += interp(row, __fsub_rn(ytop, y), ylast) * w;
+          acc_lo[r] += bp::interp(row, y, ylast) * w;
+          if (k < kh)
+            acc_hi[r] += bp::interp(row, __fsub_rn(ytop, y), ylast) * w;
         }
       }
     }
@@ -149,19 +159,44 @@ subline_kernel(const float* __restrict__ img_t, const float* __restrict__ mat,
   }
 }
 
-template <int KPT>
-int launch(const float* img_t, const float* mat, float* out, int n_proj,
-           int nw, int nh, int ni, int nj, int nz, int stage, size_t smem,
-           cudaStream_t stream) {
+template <int KPT, bool kBanded>
+int launch_one(const float* img, const float* mat, float* out, int n_proj,
+               int nw, int nh, int ni, int nj, int nz, int stage,
+               const BandArgs& band, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)bp::mat_floats(stage) +
+                                       (size_t)kLines * stage * nh);
   cudaError_t e = cudaFuncSetAttribute(
-      subline_kernel<KPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      subline_kernel<KPT, kBanded>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long n_lines = (long long)ni * nj;
   const unsigned blocks = (unsigned)((n_lines + kLines - 1) / kLines);
-  subline_kernel<KPT><<<blocks, kThreads, smem, stream>>>(
-      img_t, mat, out, n_proj, nw, nh, ni, nj, nz, stage);
+  subline_kernel<KPT, kBanded><<<blocks, kThreads, smem, stream>>>(
+      img, mat, out, n_proj, nw, nh, ni, nj, nz, stage, band);
   return (int)cudaGetLastError();
+}
+
+// One instance per k-per-lane count: the direct half's khp k values are
+// spread over the 32 lanes, KPT a lane.
+template <bool kBanded>
+int launch(const float* img, const float* mat, float* out, int n_proj,
+           int nw, int nh, int ni, int nj, int nz, int stage,
+           const BandArgs& band, cudaStream_t st) {
+  if (n_proj < 0 || nw < 2 || nh < 2 || ni < 1 || nj < 1 || nz < 1 ||
+      stage < 1)
+    return (int)cudaErrorInvalidValue;
+  const int need = (nz - nz / 2 + kWarp - 1) / kWarp;
+#define BP_LAUNCH(K)                                                       \
+  return launch_one<K, kBanded>(img, mat, out, n_proj, nw, nh, ni, nj, nz, \
+                                stage, band, st)
+  if (need <= 1) BP_LAUNCH(1);
+  if (need <= 2) BP_LAUNCH(2);
+  if (need <= 4) BP_LAUNCH(4);
+  if (need <= 8) BP_LAUNCH(8);
+  if (need <= 16) BP_LAUNCH(16);
+  if (need <= 32) BP_LAUNCH(32);
+#undef BP_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -171,7 +206,7 @@ extern "C" {
 // Dynamic shared memory one block needs for a staging depth and detector
 // height; the wrapper checks it against the card's per-block limit.
 size_t bp_subline_smem_bytes(int nh, int stage) {
-  return sizeof(float) * ((size_t)((stage * 12 + 3) & ~3) +
+  return sizeof(float) * ((size_t)bp::mat_floats(stage) +
                           (size_t)kLines * stage * nh);
 }
 
@@ -182,31 +217,30 @@ const char* bp_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launch on `stream`. Returns cudaGetLastError() after the launch (0 on
-// success). Does not synchronise and allocates nothing.
+// K1/K2: launch on `stream`. Returns cudaGetLastError() after the launch
+// (0 on success). Does not synchronise and allocates nothing.
 int bp_subline_launch(const float* img_t, const float* mat, float* out,
                       int n_proj, int nw, int nh, int ni, int nj, int nz,
                       int stage, void* stream) {
-  if (n_proj < 0 || nw < 2 || nh < 2 || ni < 1 || nj < 1 || nz < 1 ||
-      stage < 1)
+  const BandArgs none{nullptr, 0, 0, 1, 1, 1, 1, 1};
+  return launch<false>(img_t, mat, out, n_proj, nw, nh, ni, nj, nz, stage,
+                       none, (cudaStream_t)stream);
+}
+
+// K5/K6: img_b (n_proj, n_bands, 2*bw, nh), band (n_proj/group, ni/bi,
+// nj/bj) int32 with values in [0, n_bands). nw is the TRUE detector width.
+// The tiles must divide the volume and bj be a multiple of 8, so a block's
+// 8 lines share one tile.
+int bp_banded_launch(const float* img_b, const float* mat, const int* band,
+                     float* out, int n_proj, int nw, int nh, int ni, int nj,
+                     int nz, int stage, int bw, int n_bands, int bi, int bj,
+                     int group, void* stream) {
+  if (band == nullptr || bw < 1 || n_bands < 1 || bi < 1 || bj < 8 ||
+      bj % 8 || ni % bi || nj % bj || group < 1 || n_proj % group)
     return (int)cudaErrorInvalidValue;
-  const int khp = nz - nz / 2;
-  const size_t smem = bp_subline_smem_bytes(nh, stage);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int need = (khp + kWarp - 1) / kWarp;
-  if (need <= 1)
-    return launch<1>(img_t, mat, out, n_proj, nw, nh, ni, nj, nz, stage, smem, st);
-  if (need <= 2)
-    return launch<2>(img_t, mat, out, n_proj, nw, nh, ni, nj, nz, stage, smem, st);
-  if (need <= 4)
-    return launch<4>(img_t, mat, out, n_proj, nw, nh, ni, nj, nz, stage, smem, st);
-  if (need <= 8)
-    return launch<8>(img_t, mat, out, n_proj, nw, nh, ni, nj, nz, stage, smem, st);
-  if (need <= 16)
-    return launch<16>(img_t, mat, out, n_proj, nw, nh, ni, nj, nz, stage, smem, st);
-  if (need <= 32)
-    return launch<32>(img_t, mat, out, n_proj, nw, nh, ni, nj, nz, stage, smem, st);
-  return (int)cudaErrorInvalidValue;
+  const BandArgs args{band, bw, n_bands, bi, bj, ni / bi, nj / bj, group};
+  return launch<true>(img_b, mat, out, n_proj, nw, nh, ni, nj, nz, stage,
+                      args, (cudaStream_t)stream);
 }
 
 }  // extern "C"

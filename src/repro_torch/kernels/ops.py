@@ -14,6 +14,9 @@ from __future__ import annotations
 
 from repro_torch._device import check_on_device, resolve_device
 
+from .backproject_banded import backproject_banded as _backproject_banded
+from .backproject_onehot import (backproject_onehot_fused,
+                                 backproject_onehot_kernel)
 from .backproject_subline import (backproject_subline_fused,
                                   backproject_subline_kernel,
                                   fused_batch_ok)
@@ -26,6 +29,10 @@ from .backproject_subline import (backproject_subline_fused,
 ACCEPTED_OPTIONS = {
     "backproject_subline": frozenset({"nb", "block", "proj_loop",
                                       "interpret"}),
+    "backproject_onehot": frozenset({"nb", "block", "k_chunk", "proj_loop",
+                                     "interpret"}),
+    "backproject_banded": frozenset({"nb", "block", "bw", "proj_loop",
+                                     "interpret"}),
 }
 
 
@@ -59,11 +66,45 @@ def backproject_subline(img_t, mat, vol_shape_xyz, *, nb: int = 0,
     per step of its loop; otherwise K1 runs, one projection per step.
     ``interpret`` selects nothing (see the module docstring).
     """
-    dev = resolve_device(device)
-    check_on_device("img_t", img_t, dev)
-    check_on_device("mat", mat, dev)
+    _on_device(img_t, mat, device)
     if fused_batch_ok(img_t.shape[0], nb, proj_loop):
         return _run_padded(backproject_subline_fused, img_t, mat,
                            tuple(vol_shape_xyz), block, nb=nb)
     return _run_padded(backproject_subline_kernel, img_t, mat,
                        tuple(vol_shape_xyz), block)
+
+
+def backproject_onehot(img_t, mat, vol_shape_xyz, *, nb: int = 0,
+                       block=(4, 8), k_chunk: int = 128,
+                       proj_loop: bool = False, interpret: bool = True,
+                       device=None):
+    """The one-hot interpolation kernel (K3, or with ``proj_loop`` and an
+    nb-divisible projection count the fused K4); the arguments are those
+    of :func:`backproject_subline`, plus ``k_chunk``, the k tile of the
+    stage-2 contraction."""
+    _on_device(img_t, mat, device)
+    if fused_batch_ok(img_t.shape[0], nb, proj_loop):
+        return _run_padded(backproject_onehot_fused, img_t, mat,
+                           tuple(vol_shape_xyz), block, k_chunk=k_chunk,
+                           nb=nb)
+    return _run_padded(backproject_onehot_kernel, img_t, mat,
+                       tuple(vol_shape_xyz), block, k_chunk=k_chunk)
+
+
+def backproject_banded(img_t, mat, vol_shape_xyz, *, nb: int = 0,
+                       block=(4, 8), bw: int = 32, proj_loop: bool = False,
+                       interpret: bool = True, device=None):
+    """The banded kernel (K5, or with ``proj_loop`` and an nb-divisible
+    projection count the fused K6, one band per nb-group); the arguments
+    are those of :func:`backproject_subline`, plus ``bw``, the starting
+    band width (doubled until every tile's span fits). i and j are padded
+    to the block before the band schedule, as in the reference."""
+    _on_device(img_t, mat, device)
+    return _run_padded(_backproject_banded, img_t, mat, tuple(vol_shape_xyz),
+                       block, bw=bw, nb=nb, proj_loop=proj_loop)
+
+
+def _on_device(img_t, mat, device) -> None:
+    dev = resolve_device(device)
+    check_on_device("img_t", img_t, dev)
+    check_on_device("mat", mat, dev)

@@ -227,10 +227,13 @@ def test_ops_default_device_is_the_card():
 def test_cuda_spec_matches_ops_accepted_options():
     """KernelSpec.options must agree with what kernels.ops consumes, and
     both with the JAX package's contract for the same wrapper."""
-    assert tvar.REGISTRY["subline_pl"].options == \
-        ops.ACCEPTED_OPTIONS["backproject_subline"]
-    assert ops.ACCEPTED_OPTIONS["backproject_subline"] == \
-        j_ops.ACCEPTED_OPTIONS["backproject_subline"]
+    assert ops.ACCEPTED_OPTIONS == j_ops.ACCEPTED_OPTIONS
+    for variant, wrapper in (("subline_pl", "backproject_subline"),
+                             ("onehot_pl", "backproject_onehot"),
+                             ("banded_pl", "backproject_banded")):
+        assert tvar.REGISTRY[variant].options == \
+            ops.ACCEPTED_OPTIONS[wrapper]
+        assert tvar.REGISTRY[variant].backend == "cuda"
 
 
 @pytest.mark.parametrize("name", sorted(tvar.REGISTRY))

@@ -4,8 +4,8 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel is held against its plain PyTorch version and the port's
-oracle on the same inputs, at the repo's rel-RMSE bar of 1e-5.
+Each kernel (K1-K6) is held against its plain PyTorch version and the
+port's oracle on the same inputs, at the repo's rel-RMSE bar of 1e-5.
 """
 
 import dataclasses
@@ -17,6 +17,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.backproject import transpose_projections
 from repro_torch.core.geometry import projection_matrices, standard_geometry
+from repro_torch.kernels import backproject_banded as kb
+from repro_torch.kernels import backproject_onehot as ko
 from repro_torch.kernels import backproject_subline as ks
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import backproject_ref
@@ -34,7 +36,8 @@ SWEEP = [(16, 24, 6), (16, 16, 4), (13, 17, 5), (8, 32, 3), (20, 12, 7),
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    ks.reset_launches()
+    for mod in (ks, ko, kb):
+        mod.reset_launches()
     return torch.device("cuda")
 
 
@@ -124,6 +127,138 @@ def test_reconstruct_on_card_matches_plain_path(cuda):
     assert ks.LAUNCHES["backproject_subline_fused"] == 1
     plain = repro_torch.reconstruct(p, g, variant="algorithm1_mp")
     cpu = repro_torch.reconstruct(p, g, variant="subline_pl", device="cpu")
+    assert vol.device.type == "cuda"
+    assert rel_rmse(_cpu(vol), _cpu(plain)) < BAR
+    assert rel_rmse(_cpu(vol), _cpu(cpu)) < BAR
+
+
+def _check(out, plain, ref, odd_nz, name):
+    out = _cpu(out)
+    assert rel_rmse(out, plain) < BAR, name
+    assert rel_rmse(out, ref) < BAR, name
+    if odd_nz:
+        mid = out.shape[2] // 2
+        assert rel_rmse(out[..., mid], ref[..., mid]) < BAR, name
+
+
+@pytest.mark.parametrize("n,det,nproj", SWEEP)
+@pytest.mark.parametrize("block", [(1, 8), (4, 8), (4, 16)])
+@pytest.mark.parametrize("k_chunk", [4, 8, 128])
+def test_onehot_kernels_match_plain_and_oracle(cuda, n, det, nproj, block,
+                                               k_chunk):
+    img_t, mats, shape = _case(n, det, nproj, cuda)
+    plain = _cpu(ko.backproject_onehot_plain(img_t, mats, shape))
+    ref = _cpu(backproject_ref(img_t, mats, shape))
+    k3 = ops._run_padded(ko.backproject_onehot_kernel, img_t, mats, shape,
+                         block, k_chunk=k_chunk)
+    k4 = ops._run_padded(ko.backproject_onehot_fused, img_t, mats, shape,
+                         block, k_chunk=k_chunk, nb=nproj)
+    _check(k3, plain, ref, n % 2, "K3")
+    _check(k4, plain, ref, n % 2, "K4")
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    assert rel_rmse(_cpu(k3), _cpu(k1)) < 1e-6
+    assert ko.LAUNCHES == {"backproject_onehot_kernel": 1,
+                           "backproject_onehot_fused": 1}
+
+
+@pytest.mark.parametrize("n,det,nproj", SWEEP + [(16, 48, 4)])
+@pytest.mark.parametrize("block", [(1, 8), (4, 8), (4, 16)])
+@pytest.mark.parametrize("bw", [8, 16, 32])
+def test_banded_kernels_match_plain_and_oracle(cuda, n, det, nproj, block,
+                                               bw):
+    img_t, mats, shape = _case(n, det, nproj, cuda)
+    ref = _cpu(backproject_ref(img_t, mats, shape))
+    ni, nj = shape[:2]
+    pshape = (-(-ni // block[0]) * block[0], -(-nj // block[1]) * block[1],
+              shape[2])
+    for group in (1, nproj):
+        img_b, band, bw_used = kb.band_schedule(img_t, mats, pshape,
+                                                block=block, bw=bw,
+                                                group=group)
+        cpu_band, _ = kb.tile_bands(mats.cpu(), *pshape[:2], *block, bw_used,
+                                    img_b.shape[1], det, group=group)
+        assert torch.equal(band.cpu(), cpu_band)
+        kw = dict(block=block, bw=bw_used, nw=det)
+        plain = _cpu(kb.backproject_banded_plain(img_b, mats, band, pshape,
+                                                 group=group, **kw))
+        if group == 1:
+            out = kb.backproject_banded_kernel(img_b, mats, band, pshape,
+                                               **kw)
+        else:
+            out = kb.backproject_banded_fused(img_b, mats, band, pshape,
+                                              nb=group, **kw)
+        _check(out[:ni, :nj], plain[:ni, :nj], ref, n % 2, f"group={group}")
+    assert kb.LAUNCHES == {"backproject_banded_kernel": 1,
+                           "backproject_banded_fused": 1}
+
+
+@pytest.mark.parametrize("nz,det,nproj", [(70, 64, 4), (1000, 512, 4),
+                                          (1301, 1024, 8)])
+def test_onehot_and_banded_deep_columns_match_plain(cuda, nz, det, nproj):
+    img_t, mats, shape = _case(nz, det, nproj, cuda, lines=16)
+    plain = _cpu(ko.backproject_onehot_plain(img_t, mats, shape))
+    for out in (ko.backproject_onehot_kernel(img_t, mats, shape),
+                ko.backproject_onehot_fused(img_t, mats, shape, nb=nproj)):
+        assert rel_rmse(_cpu(out), plain) < BAR
+    for group in (1, nproj):
+        img_b, band, bw = kb.band_schedule(img_t, mats, shape, block=(4, 8),
+                                           bw=32, group=group)
+        kw = dict(block=(4, 8), bw=bw, nw=det)
+        plain = _cpu(kb.backproject_banded_plain(img_b, mats, band, shape,
+                                                 group=group, **kw))
+        out = (kb.backproject_banded_kernel(img_b, mats, band, shape, **kw)
+               if group == 1 else
+               kb.backproject_banded_fused(img_b, mats, band, shape,
+                                           nb=group, **kw))
+        assert rel_rmse(_cpu(out), plain) < BAR
+
+
+def test_k_chunk_and_bands_change_no_bit(cuda):
+    """K3's k tiles and K5/K6's bands change where the work is read, not
+    its arithmetic: K3 is the same at any k_chunk, and K5/K6 read the
+    sub-line kernel's very columns."""
+    img_t, mats, shape = _case(15, 20, 6, cuda, seed=4)
+    base = ko.backproject_onehot_kernel(img_t, mats, shape, k_chunk=128)
+    for kc in (1, 3, 5, 33):
+        assert torch.equal(
+            ko.backproject_onehot_kernel(img_t, mats, shape, k_chunk=kc),
+            base)
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    for nb in (1, 2, 3, 6):
+        out = ops.backproject_banded(img_t, mats, shape, nb=nb, bw=8,
+                                     block=(4, 8), proj_loop=True)
+        assert torch.equal(out, k1), nb
+
+
+def test_cuda_tensors_never_reach_the_new_plain_versions(cuda, monkeypatch):
+    img_t, mats, shape = _case(16, 24, 6, cuda)
+
+    def refuse(*_, **__):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    monkeypatch.setattr(ko, "backproject_onehot_plain", refuse)
+    monkeypatch.setattr(kb, "backproject_banded_plain", refuse)
+    for nb, loop in ((1, True), (2, True), (3, False)):
+        ops.backproject_onehot(img_t, mats, shape, nb=nb, proj_loop=loop)
+        ops.backproject_banded(img_t, mats, shape, nb=nb, proj_loop=loop)
+    assert ko.LAUNCHES == {"backproject_onehot_kernel": 2,
+                           "backproject_onehot_fused": 1}
+    assert kb.LAUNCHES == {"backproject_banded_kernel": 2,
+                           "backproject_banded_fused": 1}
+
+
+@pytest.mark.parametrize("variant,kernel", [
+    ("onehot_pl", "backproject_onehot_fused"),
+    ("banded_pl", "backproject_banded_fused"),
+])
+def test_new_variants_on_card_match_plain_path(cuda, variant, kernel):
+    import repro_torch
+    g = standard_geometry(n=16, n_det=24, n_proj=8)
+    p = np.random.RandomState(1).rand(8, g.nh, g.nw).astype(np.float32)
+    vol = repro_torch.reconstruct(p, g, variant=variant)
+    assert {**ko.LAUNCHES, **kb.LAUNCHES}[kernel] == 1
+    plain = repro_torch.reconstruct(p, g, variant="algorithm1_mp")
+    cpu = repro_torch.reconstruct(p, g, variant=variant, device="cpu")
     assert vol.device.type == "cuda"
     assert rel_rmse(_cpu(vol), _cpu(plain)) < BAR
     assert rel_rmse(_cpu(vol), _cpu(cpu)) < BAR

@@ -22,6 +22,8 @@ import repro_torch
 from repro_torch import convert
 from repro_torch.api import ReconOptions, _coerce_options
 from repro_torch.core.fdk import _build_plan
+from repro_torch.kernels import backproject_banded as kb
+from repro_torch.kernels import backproject_onehot as ko
 from repro_torch.kernels import backproject_subline as ks
 from repro_torch.runtime.executor import PlanExecutor, ProgramCache
 
@@ -50,13 +52,16 @@ def _problem(size):
 
 @pytest.fixture(autouse=True)
 def _no_launches():
-    ks.reset_launches()
+    for mod in (ks, ko, kb):
+        mod.reset_launches()
     yield
-    assert sum(ks.LAUNCHES.values()) == 0, ks.LAUNCHES
+    for mod in (ks, ko, kb):
+        assert sum(mod.LAUNCHES.values()) == 0, mod.LAUNCHES
 
 
 @pytest.mark.parametrize("size", sorted(SIZES))
-@pytest.mark.parametrize("variant", ["algorithm1_mp", "subline_pl"])
+@pytest.mark.parametrize("variant", ["algorithm1_mp", "subline_pl",
+                                     "onehot_pl", "banded_pl"])
 @pytest.mark.parametrize("schedule", ["step", "chunk"])
 @pytest.mark.parametrize("proj_batch", [None, 3])
 @pytest.mark.parametrize("out", ["device", "host"])
@@ -81,6 +86,22 @@ def test_subline_pl_nb_routes_match_jax(nb):
     g, t, p, ref = _problem("odd")
     vol = repro_torch.reconstruct(p, t, variant="subline_pl", nb=nb,
                                   device="cpu")
+    assert rel_rmse(vol.numpy(), ref) < BAR
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("variant,nb,knobs", [
+    ("onehot_pl", 8, {}), ("onehot_pl", 1, {"k_chunk": 3}),
+    ("banded_pl", 8, {}), ("banded_pl", 1, {"bw": 8}),
+])
+def test_cuda_variants_match_jax(size, variant, nb, knobs):
+    """onehot_pl and banded_pl through the whole path, default (fused,
+    nb=8) and per-projection routes, against the JAX algorithm1_mp."""
+    g, t, p, ref = _problem(size)
+    vol = repro_torch.reconstruct(
+        p, t, options=ReconOptions(variant=variant, nb=nb,
+                                   kernel_options=knobs), device="cpu")
+    assert vol.shape == g.volume_shape_zyx
     assert rel_rmse(vol.numpy(), ref) < BAR
 
 
@@ -214,7 +235,7 @@ def test_unported_variant_and_executor_paths_raise():
     from repro_torch.runtime.planner import plan_reconstruction
     _, t, p, _ = _problem("smoke")
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        repro_torch.reconstruct(p, t, variant="onehot_pl", device="cpu")
+        repro_torch.reconstruct(p, t, variant="transpose_mp", device="cpu")
     tiled = plan_reconstruction(t, "algorithm1_mp", tile_shape=(8, 8, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PlanExecutor(t, tiled, device="cpu")

@@ -41,7 +41,8 @@ def _fields(plan) -> dict:
 
 @pytest.mark.parametrize("n,det,nproj", GEOMS)
 @pytest.mark.parametrize("variant", ["algorithm1_mp", "subline_pl",
-                                     "subline_batch_mp"])
+                                     "subline_batch_mp", "onehot_pl",
+                                     "banded_pl"])
 @pytest.mark.parametrize("proj_batch", [None, 3])
 @pytest.mark.parametrize("schedule", ["step", "chunk"])
 @pytest.mark.parametrize("nb", [1, 4])
@@ -60,6 +61,8 @@ def test_untiled_plans_equal_jax(n, det, nproj, variant, proj_batch,
     ("subline_batch_mp", (5, 7, 5)),   # symmetry-free: plain slabs
     ("subline_pl", (4, 4, 16)),
     ("algorithm1_mp", (16, 16, 3)),
+    ("onehot_pl", (8, 8, 5)),
+    ("banded_pl", (8, 16, 16)),
 ])
 def test_tiled_plans_equal_jax(variant, tile):
     """The planner is ported whole: tiled schedules plan identically even
@@ -84,6 +87,21 @@ def test_facade_plans_equal_jax(kw):
         _fields(j_build(g, "subline_pl", **args))
 
 
+@pytest.mark.parametrize("variant,kw", [
+    ("onehot_pl", dict(k_chunk=16)), ("onehot_pl", dict(k_chunk=3, nb=1)),
+    ("banded_pl", dict(bw=16)), ("banded_pl", dict(bw=8, proj_loop=False)),
+])
+def test_kernel_option_plans_equal_jax(variant, kw):
+    """The variants' own knobs (k_chunk, bw) reach the plan's program
+    options as in the JAX package."""
+    from repro.core.fdk import _build_plan as j_build
+    g, t = _geoms(13, 17, 5)
+    args = {**dict(nb=4, interpret=True, tiling=None, memory_budget=None,
+                   proj_batch=None, out=None), **kw}
+    assert _fields(_build_plan(t, variant, **args)) == \
+        _fields(j_build(g, variant, **args))
+
+
 @pytest.mark.parametrize("kw", [
     dict(variant="auto"), dict(tuning="cache.json"),
 ])
@@ -101,6 +119,8 @@ def test_autotune_entry_raises(kw):
     ("algorithm1_mp", dict(proj_batch=0)),
     ("algorithm1_mp", dict(block=(4, 8))),     # not an option it takes
     ("subline_pl", dict(bw=8)),
+    ("onehot_pl", dict(bw=8)),
+    ("banded_pl", dict(k_chunk=8)),
     ("algorithm1_mp", dict(precision="f16")),
     ("algorithm1_mp", dict(ingest="stream", schedule="step")),
 ])
