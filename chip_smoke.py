@@ -6,8 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--seed N]
 
 It builds the CUDA kernels (K1-K6) from the sources in the checkout,
-holds each kernel against its plain PyTorch version and the oracle at
-the sweep shapes and at the main path's shape, drives the FDK main path
+prints K1/K2's launch plan with the card's occupancy, registers and
+spills, holds each kernel against its plain PyTorch version and the
+oracle at the sweep shapes and at the main path's shape (and K1, K2, K5
+and K6 against each other, bit for bit), drives the FDK main path
 at the paper's P5 size (512^3 voxels, 512 views, 512x512 detector)
 through ``repro_torch.reconstruct`` with each CUDA variant
 (``subline_pl``, ``onehot_pl``, ``banded_pl``, each at nb=8 and nb=1),
@@ -43,6 +45,13 @@ SWEEP = [(16, 24, 6), (16, 16, 4), (13, 17, 5), (8, 32, 3), (20, 12, 7),
 DEPTHS = [(70, 64, 4), (129, 96, 5), (200, 128, 4), (500, 256, 3),
           (1000, 512, 4), (1301, 1024, 8)]
 BLOCKS = [(1, 8), (2, 8), (4, 8), (4, 16)]
+# K1/K2 only, on 16 x 16 lines: past the banded kernel's nz=2048, and
+# detectors so fine that the windows overflow their columns (2.4 pixels a
+# voxel) and their rows too (7.2: both global-read paths)
+DEEP_SUBLINE = [(2049, 1024, 4), (2600, 1024, 4), (300, 900, 4),
+                (100, 900, 4)]
+SUBLINE_PLAIN_BAR = 1e-7          # K1/K2 against their plain version
+K2_NBS = [1, 2, 4, 8]             # K2 timed at P5 at each nb
 NBS = [2, 3, 8]
 K_CHUNKS = [4, 8, 128]            # one-hot k tiles (4 divides no khp here)
 BWS = [8, 16, 32]                 # banded starting band widths
@@ -217,32 +226,48 @@ def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> int:
         errs[kernel] = max(errs[kernel], float((out - plain).abs().max()))
         msg = f"{label} vs plain {r_plain:.2e} vs oracle {r_ref:.2e}"
         require(r_plain < BAR and r_ref < BAR, msg)
+        if family == "subline":
+            require(r_plain < SUBLINE_PLAIN_BAR,
+                    f"{msg} (bar {SUBLINE_PLAIN_BAR} against the plain "
+                    f"version)")
         if mid is not None:
             r_mid = rel_rmse(out[..., mid], ref[..., mid])
             msg += f" middle plane {r_mid:.2e}"
             require(r_mid < BAR, msg)
         lines[family].append((max(r_plain, r_ref), msg))
 
-    # K1/K2: the sub-line kernel
+    # K1/K2: the tiled sub-line kernel, on the ragged volume and padded to
+    # each block; every call gives K1's volume bit for bit
     sub_plain = ks.backproject_subline_plain(img_t, mats, shape)
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    check("subline", "K1 unpadded", "backproject_subline_kernel", k1,
+          sub_plain)
+
+    def same_as_k1(label, out):
+        require(torch.equal(out, k1), f"{label} is not bitwise equal to K1")
+        return out
+
     for block in blocks:
         check("subline", f"K1 block={block}", "backproject_subline_kernel",
-              ops._run_padded(ks.backproject_subline_kernel, img_t, mats,
-                              shape, block), sub_plain)
+              same_as_k1(f"K1 block={block}", ops._run_padded(
+                  ks.backproject_subline_kernel, img_t, mats, shape, block)),
+              sub_plain)
         for nb in fused_nbs:
             check("subline", f"K2 block={block} nb={nb}",
                   "backproject_subline_fused",
-                  ops._run_padded(ks.backproject_subline_fused, img_t, mats,
-                                  shape, block, nb=nb), sub_plain)
+                  same_as_k1(f"K2 block={block} nb={nb}", ops._run_padded(
+                      ks.backproject_subline_fused, img_t, mats, shape,
+                      block, nb=nb)), sub_plain)
         for nb in NBS:      # the routed wrapper: K2 when nb | np, else K1
-            out = ops.backproject_subline(img_t, mats, shape, nb=nb,
-                                          block=block, proj_loop=True)
+            out = same_as_k1(f"ops block={block} nb={nb}",
+                             ops.backproject_subline(img_t, mats, shape,
+                                                     nb=nb, block=block,
+                                                     proj_loop=True))
             check("subline", f"ops block={block} nb={nb}",
                   "backproject_subline_kernel" if npj % nb
                   else "backproject_subline_fused", out, sub_plain)
 
     # K3/K4: the one-hot kernel; K3 also within 1e-6 of K1
-    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
     plain = ko.backproject_onehot_plain(img_t, mats, shape, k_chunk=8)
     for block in blocks:
         for kc in k_chunks:
@@ -304,7 +329,8 @@ def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> int:
                     kernel, label = "backproject_banded_fused", \
                         f"K6 nb={group}"
                 check("banded", f"{label} block={block} bw={bw0}->{bw}",
-                      kernel, out[:ni, :nj], plain)
+                      kernel, same_as_k1(f"{label} block={block} bw={bw}",
+                                         out[:ni, :nj]), plain)
         for nb in NBS:
             out = ops.backproject_banded(img_t, mats, shape, nb=nb,
                                          block=block, bw=bws[0],
@@ -336,9 +362,82 @@ def phase_kernels_sweep(seed: int) -> dict:
         widened += _sweep_case(case[0], seed + i, errs, *case[1:])
     print(f"[kernels] the band search widened bw in {widened} banded cases")
     require(widened > 0, "no banded case ran the band-width doubling loop")
+    _deep_subline(seed + len(cases), errs)
     return errs
 
 
+def _deep_subline(seed, errs) -> None:
+    """K1/K2 at DEEP_SUBLINE: against the plain version and the oracle,
+    and K2 at every nb bitwise equal to K1."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.backproject import transpose_projections
+    from repro_torch.core.geometry import (projection_matrices,
+                                           standard_geometry)
+    from repro_torch.kernels.ref import backproject_ref
+    ks = launch_modules()[0]
+    for nz, det, npj in DEEP_SUBLINE:
+        geom = dataclasses.replace(standard_geometry(n=nz, n_det=det,
+                                                     n_proj=npj), nx=16,
+                                   ny=16)
+        img = torch.from_numpy(np.random.RandomState(seed).rand(
+            npj, geom.nh, geom.nw).astype(np.float32)).cuda()
+        img_t = transpose_projections(img)
+        mats = projection_matrices(geom)
+        shape = geom.volume_shape_xyz
+        plain = ks.backproject_subline_plain(img_t, mats, shape)
+        ref = backproject_ref(img_t, mats, shape)
+        k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+        torch.cuda.synchronize()
+        r_plain, r_ref = rel_rmse(k1, plain), rel_rmse(k1, ref)
+        errs["backproject_subline_kernel"] = max(
+            errs["backproject_subline_kernel"],
+            float((k1 - plain).abs().max()))
+        msg = (f"K1/K2 at volume {shape}, detector {det}, {npj} views: vs "
+               f"plain {r_plain:.2e}, vs oracle {r_ref:.2e}")
+        require(r_plain < SUBLINE_PLAIN_BAR and r_ref < BAR, msg)
+        if nz % 2:          # the direct half's odd middle plane
+            r_mid = rel_rmse(k1[..., nz // 2], ref[..., nz // 2])
+            msg += f", middle plane {r_mid:.2e}"
+            require(r_mid < BAR, msg)
+        for nb in [nb for nb in K2_NBS if npj % nb == 0]:
+            k2 = ks.backproject_subline_fused(img_t, mats, shape, nb=nb)
+            require(torch.equal(k2, k1), f"K2 nb={nb} at nz={nz} is not "
+                    f"bitwise equal to K1")
+        print(f"[kernels] {msg}; K2 bitwise equal to K1")
+
+
+def phase_plan(shapes) -> None:
+    """K1/K2's launch plan at each (volume, nh), with what the card says
+    of it: blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local (spill) bytes per thread. K1 and K2 launch the
+    same plan."""
+    import ctypes
+    ks = launch_modules()[0]
+    lib = ks._lib()
+    for shape, nh in shapes:
+        plan = ks.launch_plan(shape, nh)
+        blocks, regs, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.bp_tile_occupancy(plan.kpt, nh, plan.win_rows,
+                                    ctypes.byref(blocks), ctypes.byref(regs),
+                                    ctypes.byref(local))
+        require(err == 0, f"bp_tile_occupancy failed: CUDA error {err}")
+        smem = lib.bp_tile_smem_bytes(nh, plan.win_rows)
+        print(f"[plan] volume {shape} nh={nh}: tile {ks.TILE}, k chunk "
+              f"{plan.k_chunk} planes (kpt {plan.kpt}) + mirrors, grid "
+              f"{plan.grid}, a ring of 2 windows of {plan.win_rows} "
+              f"rows, shared {smem} B; {blocks.value} blocks/SM "
+              f"on the card; {regs.value} registers, {local.value} B local "
+              f"per thread")
+        require(blocks.value >= 2, f"fewer than 2 blocks per SM at {shape}")
+
+
+# (volume, nh) where K1/K2's launch plan is printed: P5, and the deep
+# columns of DEPTHS and DEEP_SUBLINE
+PLAN_SHAPES = ([((512, 512, 512), 512)]
+               + [((16, 16, nz), det)
+                  for nz, det, _ in DEPTHS + DEEP_SUBLINE])
 MAIN_RUNS = (
     ("subline_pl nb=8", dict(variant="subline_pl"),
      "backproject_subline_fused"),
@@ -419,6 +518,10 @@ def phase_p5(seed: int, errs: dict) -> dict:
                 f"{label} disagrees with algorithm1_mp or subline_pl")
     require(torch.equal(vols["subline_pl nb=8"], vols["subline_pl nb=1"]),
             "K1 and K2 main paths are not bitwise equal")
+    for nb in (8, 1):
+        require(torch.equal(vols[f"banded_pl nb={nb}"],
+                            vols[f"subline_pl nb={nb}"]),
+                f"banded_pl and subline_pl at nb={nb} are not bitwise equal")
     del vols, main, plain_vol
 
     # ---- each kernel at the main path's shape against its plain version ---
@@ -472,6 +575,7 @@ def phase_p5(seed: int, errs: dict) -> dict:
         print(f"[P5] banded plain version (group={group}) vs sub-line "
               f"plain: rel_rmse {r:.3e}")
         require(r < BAR, "the banded plain version disagrees at P5")
+    outs = {}
     for name, call in calls.items():
         out = call()
         torch.cuda.synchronize()
@@ -498,6 +602,18 @@ def phase_p5(seed: int, errs: dict) -> dict:
         print(f"[P5] {KERNELS[name][0]} {what} (max |plain| "
               f"{float(plain.abs().max()):.3e})")
         require(r < BAR, f"{name} disagrees with its plain version at P5")
+        outs[name] = out
+    # the tiled K1/K2 against the old template's K5/K6, bit for bit
+    for a, b in (("backproject_subline_kernel", "backproject_banded_kernel"),
+                 ("backproject_subline_fused", "backproject_banded_fused"),
+                 ("backproject_subline_kernel", "backproject_subline_fused")):
+        require(torch.equal(outs[a], outs[b]),
+                f"{a} and {b} are not bitwise equal at P5")
+    print("[P5] K1 = K5, K2 = K6 and K1 = K2 bit for bit")
+    r = rel_rmse(outs["backproject_subline_kernel"], plain)
+    require(r < SUBLINE_PLAIN_BAR, f"K1 is {r:.3e} from its plain version "
+            f"at P5 (bar {SUBLINE_PLAIN_BAR})")
+    del outs
     del plains, out
 
     # ---- times --------------------------------------------------------------
@@ -527,10 +643,12 @@ def phase_p5(seed: int, errs: dict) -> dict:
         print(f"[P5] {KERNELS[name][0]}: {times[name]:.3f} ms ({how}), "
               f"{prob.updates / times[name] / 1e6:.1f} GUPS, "
               f"{bounds[name][0] / times[name]:.4f} of the bound")
-    for nb in (2, 4):        # K2's staging depth: nb projections per step
+    for nb in K2_NBS:        # nb changes no launch: the same plan as K1
         ms = timed(lambda: ks.backproject_subline_fused(img_t, mats, shape,
                                                         nb=nb))
-        print(f"[P5] K2 at nb={nb}: {ms:.3f} ms")
+        print(f"[P5] K2 at nb={nb}: {ms:.3f} ms, "
+              f"{bounds['backproject_subline_fused'][0] / ms:.4f} of the "
+              f"bound")
     plain_ms = {}
     ms, how = timed_long(lambda: ks.backproject_subline_plain(img_t, mats,
                                                               shape))
@@ -630,6 +748,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
+    phase_plan(PLAN_SHAPES)
     errs = phase_kernels_sweep(args.seed)
     rows = phase_p5(args.seed, errs)
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -22,7 +22,7 @@ the hand-written CUDA kernel):
     onehot_pl        CUDA: subline_pl with stage 2 as a two-hot
                      contraction, kernels/csrc/backproject_onehot.cu
     banded_pl        CUDA: subline_pl reading each tile's band of
-                     detector columns, the kBanded instance of
+                     detector columns, subline_kernel of
                      kernels/csrc/backproject_subline.cu
 
 The other variants of the JAX package wait in ROADMAP.md.

@@ -16,8 +16,8 @@ band. Both helpers run on the tensors' own device; the band schedule is
 float64 there, in the reference's order of operations, and gives the
 reference's band array bit for bit.
 
-The kernel is the sub-line kernel's ``kBanded`` instance
-(``csrc/backproject_subline.cu``): K1/K2's work split, with stage 1
+The kernel is ``subline_kernel`` of ``csrc/backproject_subline.cu``, the
+sub-line kernel K1/K2 ran before they were tiled: stage 1
 reading column ``rel = floor(x) - band*bw`` of its band and dropping a
 line whose ``rel`` misses ``[0, 2*bw-2]``. K6 shares one band per group
 of nb projections. What bounds it on an H100 is K1's bound, the same
@@ -34,6 +34,7 @@ on a CUDA tensor they launch the kernel or raise.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Sequence
 
 import torch
@@ -46,9 +47,41 @@ LAUNCHES: Dict[str, int] = {"backproject_banded_kernel": 0,
                             "backproject_banded_fused": 0}
 
 
+_LIB = None
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ks._lib()    # the same library: backproject_subline.cu
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.bp_subline_smem_bytes.argtypes = [ci, ci]
+        lib.bp_subline_smem_bytes.restype = ctypes.c_size_t
+        lib.bp_subline_max_khp.argtypes = []
+        lib.bp_subline_max_khp.restype = ci
+        lib.bp_banded_launch.argtypes = [vp] * 4 + [ci] * 12 + [vp]
+        lib.bp_banded_launch.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def check_depth(lib, nz: int) -> None:
+    """The kernel's depth limit: 32 planes a lane over the direct half."""
+    if nz - nz // 2 > lib.bp_subline_max_khp():
+        raise ValueError(f"nz={nz} exceeds the kernel's largest depth "
+                         f"{2 * lib.bp_subline_max_khp()}")
+
+
+def _max_stage(nh: int, nb: int) -> int:
+    """K6's staging depth for ``nb``: the deepest whose block fits."""
+    lib = _lib()
+    return ks.max_stage(
+        nb, lambda st: lib.bp_subline_smem_bytes(nh, st) <= ks.SMEM_PER_BLOCK)
 
 
 def band_layout(img_t: torch.Tensor, bw: int):
@@ -167,10 +200,10 @@ def _check_banded(img_b, mat, band, vol_shape_xyz, block, bw, nw, group):
 
 
 def _launch(img_b, mat, band, shape, block, bw, nw, group, stage):
-    lib = ks._lib()
+    lib = _lib()
     ni, nj, nz = shape
     n_proj, n_bands, _, nh = img_b.shape
-    ks.check_depth(lib, nz)
+    check_depth(lib, nz)
     if lib.bp_subline_smem_bytes(nh, stage) > ks.SMEM_PER_BLOCK:
         raise ValueError(f"nh={nh} needs more shared memory per block than "
                          f"the card has, even at one staged projection")
@@ -215,7 +248,7 @@ def backproject_banded_fused(img_b: torch.Tensor, mat: torch.Tensor,
         return backproject_banded_plain(img_b, mat, band, shape, block=block,
                                         bw=bw, nw=nw, group=nb)
     out = _launch(img_b, mat, band, shape, block, bw, nw, nb,
-                  ks._max_stage(img_b.shape[3], nb))
+                  _max_stage(img_b.shape[3], nb))
     LAUNCHES["backproject_banded_fused"] += 1
     return out
 

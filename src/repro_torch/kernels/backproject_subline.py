@@ -3,21 +3,29 @@
 Replaces the two Pallas kernels of the JAX package's
 ``kernels/backproject_subline.py``: ``backproject_subline_pallas``
 (l.204, K1) and ``backproject_subline_fused`` (l.240, K2). One CUDA
-kernel, ``csrc/backproject_subline.cu``, serves both: K1 stages one
-projection per step of its projection loop, K2 stages ``nb``.
+kernel, ``tile_kernel`` in ``csrc/backproject_subline.cu``, serves both
+with the same launch (:func:`launch_plan`); K2 keeps ``nb`` for the
+reference's ``n_proj % nb == 0`` contract.
 
 What bounds it on an H100. By the repo's cost model (8 floating-point
-operations per voxel-view update) the kernel is bound by operations: at
+operations per voxel-view update) the function is bound by operations: at
 P5 (512^3 voxels, 512 views) 5.5e11 FLOP against 1.07 GB of compulsory
-traffic (the projections read once, the volume written once), about 510
-FLOP per byte. The design answers with what the TPU kernel did through
-its output-stationary grid: each block walks over all projections
-itself, every voxel's sum stays in a register of one lane, and the
-volume is written once, with no atomics and a fixed summation order. The
-traffic the design does NOT remove is stage 1: every voxel line reads its
-two detector columns (2*nh floats) per projection through L2 into shared
-memory, 8 bytes per update at P5 (about 550 GB in all), which the columns
-shared between neighbouring lines could cut in a later change.
+traffic (the projections read once, the volume written once). A block
+owns a tile of 8 x 8 voxel lines and a mirror-paired chunk of k planes,
+walks over all projections itself, keeps every voxel's sum in a register
+of one lane and writes it once, with no atomics and a fixed summation
+order: what the TPU kernel's output-stationary grid gave. Per view the
+tile's detector window (the columns its lines' floor(x) reach and the rows
+its k chunk's samples reach) goes into shared memory once, copied with
+``cp.async`` into a ring of two windows that runs one view ahead, and the
+64 lines blend their sub-lines from it; the kernel it replaced read two
+columns per line per view through L2 (about 550 GB at P5). What is left is
+instruction issue: about 20 instructions a sample in stage 1 and stage 2,
+against the cost model's 8 FLOP. :func:`launch_plan` shortens the k
+chunk where the detector is finer than the voxels, so that a chunk's rows
+still fit a window slot (P4, P7, P8). A window wider than the kernel's 16
+columns (those problems, oblique geometries) or still taller than the slot
+is read from global memory instead, for that tile and view.
 
 On a CPU tensor the wrappers run :func:`backproject_subline_plain`, the
 same function in plain PyTorch; on a CUDA tensor they launch the kernel
@@ -27,6 +35,7 @@ or raise. Nothing else selects the path.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Sequence
 
 import torch
@@ -38,6 +47,10 @@ LAUNCHES: Dict[str, int] = {"backproject_subline_kernel": 0,
 
 #: Dynamic shared memory a block may use on an H100 (227 KB).
 SMEM_PER_BLOCK = 232448
+
+#: The voxel lines (i, j) one block of the tiled K1/K2 kernel owns
+#: (``tiled::kTi``, ``tiled::kTj`` of the CUDA source).
+TILE = (8, 8)
 
 _LIB = None
 
@@ -60,14 +73,12 @@ def _lib():
         from . import _build
         lib = _build.load("backproject_subline")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bp_subline_launch.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
-        lib.bp_subline_launch.restype = ci
-        lib.bp_subline_smem_bytes.argtypes = [ci, ci]
-        lib.bp_subline_smem_bytes.restype = ctypes.c_size_t
-        lib.bp_subline_max_khp.argtypes = []
-        lib.bp_subline_max_khp.restype = ci
-        lib.bp_banded_launch.argtypes = [vp] * 4 + [ci] * 12 + [vp]
-        lib.bp_banded_launch.restype = ci
+        lib.bp_tile_launch.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
+        lib.bp_tile_launch.restype = ci
+        lib.bp_tile_smem_bytes.argtypes = [ci, ci]
+        lib.bp_tile_smem_bytes.restype = ctypes.c_size_t
+        lib.bp_tile_occupancy.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 3
+        lib.bp_tile_occupancy.restype = ci
         lib.bp_cuda_error_string.argtypes = [ci]
         lib.bp_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -199,51 +210,75 @@ def max_stage(nb: int, fits) -> int:
     return stage
 
 
-def check_depth(lib, nz: int) -> None:
-    if nz - nz // 2 > lib.bp_subline_max_khp():
-        raise ValueError(f"nz={nz} exceeds the kernel's largest depth "
-                         f"{2 * lib.bp_subline_max_khp()}")
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the tiled K1/K2 kernel (tiles of TILE lines) is launched for
+    one call. The kernel lays out its shared memory from ``win_rows`` and
+    the detector height (``bp_tile_smem_bytes``)."""
+    kpt: int             # direct planes per lane of a block
+    k_chunk: int         # direct planes per block (32 * kpt), with mirrors
+    grid: tuple          # blocks: (tiles, k chunks)
+    win_rows: int        # detector rows a window slot holds (of 16 columns)
 
 
-def _launch(img_t, mat, shape, stage: int) -> torch.Tensor:
+def launch_plan(vol_shape_xyz, nh: int) -> LaunchPlan:
+    """The tiled kernel's launch for a volume and detector height.
+
+    k is split into chunks of 32*kpt direct planes with their O3 mirrors,
+    kpt the smallest of 1, 2, 4 whose chunk holds the direct half, 4 past
+    that (the fewer chunks, the less per-view work repeats; 64 sums a lane
+    at most). A plane spans about ``m = ceil(nh / nz)`` detector rows where
+    the detector frames the volume (``standard_geometry``; P4, P7, P8 have
+    m = 2, 4, 2), so kpt is halved while a chunk would span more than 128
+    rows, and a window slot holds the chunk's direct and mirrored rows at
+    m rows a plane (4 at most), with 8 rows of margin each. A window that
+    still does not fit takes the kernel's global-read paths.
+    """
+    ni, nj, nz = (int(v) for v in vol_shape_xyz)
+    khp = nz - nz // 2
+    m = -(-nh // nz)
+    kpt = 1 if khp <= 32 else 2 if khp <= 64 else 4
+    while kpt > 1 and 32 * kpt * m > 128:
+        kpt //= 2
+    k_chunk = 32 * kpt
+    n_chunks = -(-khp // k_chunk)
+    if n_chunks > 65535:
+        raise ValueError(f"nz={nz} needs {n_chunks} k chunks, more than a "
+                         f"grid's 65535")
+    grid = (-(-ni // TILE[0]) * -(-nj // TILE[1]), n_chunks)
+    return LaunchPlan(kpt, k_chunk, grid, 2 * k_chunk * min(m, 4) + 16)
+
+
+def _launch(img_t, mat, shape) -> torch.Tensor:
     lib = _lib()
     ni, nj, nz = shape
     n_proj, nw, nh = img_t.shape
-    check_depth(lib, nz)
-    if lib.bp_subline_smem_bytes(nh, stage) > SMEM_PER_BLOCK:
-        raise ValueError(f"nh={nh} needs more shared memory per block than "
-                         f"the card has, even at one staged projection")
+    plan = launch_plan(shape, nh)
     out = torch.empty(shape, dtype=torch.float32, device=img_t.device)
     with torch.cuda.device(img_t.device):
         stream = torch.cuda.current_stream(img_t.device).cuda_stream
-        err = lib.bp_subline_launch(
+        err = lib.bp_tile_launch(
             img_t.data_ptr(), mat.data_ptr(), out.data_ptr(), n_proj, nw, nh,
-            ni, nj, nz, stage, stream)
+            ni, nj, nz, plan.kpt, plan.win_rows, stream)
     if err != 0:
         raise launch_error("backproject_subline", lib, err)
     return out
 
 
-def _max_stage(nh: int, nb: int) -> int:
-    lib = _lib()
-    return max_stage(
-        nb, lambda st: lib.bp_subline_smem_bytes(nh, st) <= SMEM_PER_BLOCK)
-
-
 def backproject_subline_kernel(img_t: torch.Tensor, mat: torch.Tensor,
                                vol_shape_xyz, *, block=(4, 8)) -> torch.Tensor:
-    """K1: back-project with one staged projection per loop step.
+    """K1: back-project through the tiled kernel.
 
     img_t (np, nw, nh) f32; mat (np, 3, 4) f32, both contiguous and on
     one device. Returns vol_t (nx, ny, nz) f32. ``block`` is only the
     i/j padding granularity of the caller (``ops._run_padded``); the
-    kernel masks its own ragged edge. Any nz up to 2048 (odd nz by an
-    uneven half-split).
+    kernel masks its own ragged edge. Any nz (odd nz by an uneven
+    half-split).
     """
     shape = _check(img_t, mat, vol_shape_xyz, block)
     if img_t.device.type == "cpu":
         return backproject_subline_plain(img_t, mat, shape)
-    out = _launch(img_t, mat, shape, stage=1)
+    out = _launch(img_t, mat, shape)
     LAUNCHES["backproject_subline_kernel"] += 1
     return out
 
@@ -253,10 +288,9 @@ def backproject_subline_fused(img_t: torch.Tensor, mat: torch.Tensor,
                               nb: int = 8) -> torch.Tensor:
     """K2: the fused multi-batch (``proj_loop``) form of K1.
 
-    Identical math; each step of the kernel's projection loop stages
-    ``nb`` projections (fewer only where nb of them would not fit a
-    block's shared memory). Requires ``n_proj % nb == 0``, like the
-    reference's fused kernel.
+    The same launch as K1, so the same bits: the kernel walks every view
+    itself, one window ahead, whatever ``nb``. Requires ``n_proj % nb ==
+    0``, like the reference's fused kernel.
     """
     shape = _check(img_t, mat, vol_shape_xyz, block)
     nb = int(nb)
@@ -265,6 +299,6 @@ def backproject_subline_fused(img_t: torch.Tensor, mat: torch.Tensor,
                          f"n_proj={img_t.shape[0]}, got nb={nb}")
     if img_t.device.type == "cpu":
         return backproject_subline_plain(img_t, mat, shape)
-    out = _launch(img_t, mat, shape, stage=_max_stage(img_t.shape[2], nb))
+    out = _launch(img_t, mat, shape)
     LAUNCHES["backproject_subline_fused"] += 1
     return out

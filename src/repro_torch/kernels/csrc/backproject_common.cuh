@@ -1,6 +1,6 @@
 // Device helpers shared by the back-projection kernels of this directory
-// (backproject_subline.cu: K1/K2 and the banded K5/K6; backproject_onehot.cu:
-// K3/K4). The per-line scalars are computed in the order of the plain
+// (backproject_subline.cu: the tiled K1/K2 and the banded K5/K6;
+// backproject_onehot.cu: K3/K4). The per-line scalars are computed in the order of the plain
 // PyTorch versions with round-to-nearest intrinsics, so FMA contraction
 // cannot move floor(x), floor(y) or the validity masks across an edge
 // relative to them.
@@ -70,6 +70,29 @@ __device__ __forceinline__ void blend_columns(const float* __restrict__ c0,
 #pragma unroll 4
   for (int y = lane; y < nh; y += kWarp)
     row[y] = __ldg(c0 + y) * wx + __ldg(c1 + y) * dx;
+}
+
+// The roundings that blend_columns, interp and the accumulation
+// `acc += interp(...) * w` get in the banded kernel, where nvcc contracts
+// each into one FMA fusing the first product (found on the card: nvcc
+// fused the other product of the same blend expression in the tiled
+// K1/K2's batched stage 1). Written out with intrinsics, so a kernel
+// built around them gives the banded kernel's bits wherever it is.
+__device__ __forceinline__ float blend_rn(float v0, float v1, float dx) {
+  return __fmaf_rn(v0, 1.0f - dx, __fmul_rn(v1, dx));
+}
+
+__device__ __forceinline__ float interp_rn(const float* row, float y,
+                                           float ylast) {
+  const float y0 = floorf(y);
+  if (!(y0 >= 0.0f && y0 <= ylast)) return 0.0f;
+  const int iy = (int)y0;
+  const float dy = y - y0;
+  return __fmaf_rn(row[iy], 1.0f - dy, __fmul_rn(row[iy + 1], dy));
+}
+
+__device__ __forceinline__ float accumulate_rn(float acc, float v, float w) {
+  return __fmaf_rn(v, w, acc);
 }
 
 }  // namespace bp

@@ -111,12 +111,15 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     img_t, mats, _ = _case(8, 16, 2, cuda)
+    # the banded kernel keeps the old template's depth limit; the tiled
+    # K1/K2 take any nz (test_tiled_kernel_past_the_old_depth_limit)
     with pytest.raises(ValueError, match="largest depth"):
-        ks.backproject_subline_kernel(img_t, mats, (8, 8, 4098))
+        ops.backproject_banded(img_t, mats, (8, 8, 4098))
     with pytest.raises(ValueError, match="contiguous"):
         ks.backproject_subline_kernel(img_t.transpose(1, 2).contiguous()
                                       .transpose(1, 2), mats, (8, 8, 8))
     assert sum(ks.LAUNCHES.values()) == 0
+    assert sum(kb.LAUNCHES.values()) == 0
 
 
 def test_reconstruct_on_card_matches_plain_path(cuda):
@@ -262,3 +265,89 @@ def test_new_variants_on_card_match_plain_path(cuda, variant, kernel):
     assert vol.device.type == "cuda"
     assert rel_rmse(_cpu(vol), _cpu(plain)) < BAR
     assert rel_rmse(_cpu(vol), _cpu(cpu)) < BAR
+
+
+# ---- the tiled K1/K2 kernel ----------------------------------------------
+
+
+@pytest.mark.parametrize("n,det,nproj", [(13, 17, 5), (20, 12, 7),
+                                         (15, 20, 6)])
+def test_tiled_kernel_on_ragged_tiles(cuda, n, det, nproj):
+    """Volumes that are no whole number of 8 x 8 line tiles, unpadded."""
+    img_t, mats, shape = _case(n, det, nproj, cuda, seed=2)
+    plain = _cpu(ks.backproject_subline_plain(img_t, mats, shape))
+    ref = _cpu(backproject_ref(img_t, mats, shape))
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    _check(k1, plain, ref, n % 2, "K1")
+    assert rel_rmse(_cpu(k1), plain) < 1e-7
+    assert torch.equal(ks.backproject_subline_fused(img_t, mats, shape,
+                                                    nb=nproj), k1)
+
+
+@pytest.mark.parametrize("n,det,nproj,lines", [(16, 48, 4, None),
+                                               (8, 32, 3, None),
+                                               (300, 900, 4, 16),
+                                               (100, 900, 4, 16)])
+def test_tiled_kernel_global_read_path(cuda, n, det, nproj, lines):
+    """Detectors so fine that a tile's window overflows its 16 columns
+    (tests/test_torch_subline_tiles.py names these cases): those views
+    read the columns from global memory; at 900 rows for 100 planes the
+    windows overflow their rows too and run line by line at full height.
+    The same result either way."""
+    img_t, mats, shape = _case(n, det, nproj, cuda, seed=3, lines=lines)
+    plain = _cpu(ks.backproject_subline_plain(img_t, mats, shape))
+    ref = _cpu(backproject_ref(img_t, mats, shape))
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    _check(k1, plain, ref, n % 2, "K1")
+    assert rel_rmse(_cpu(k1), plain) < 1e-7
+    out = ops.backproject_banded(img_t, mats, shape, nb=1, bw=8,
+                                 block=(8, 8), proj_loop=False)
+    assert torch.equal(out, k1)
+
+
+@pytest.mark.parametrize("nz,det,nproj", [(1301, 1024, 8), (2049, 1024, 4),
+                                          (2600, 1024, 4), (8192, 256, 2)])
+def test_tiled_kernel_past_the_old_depth_limit(cuda, nz, det, nproj):
+    """Deep columns: several k chunks, and nz past the 2048 planes of the
+    kernel it replaced (8192: 32 chunks, four times that limit)."""
+    img_t, mats, shape = _case(nz, det, nproj, cuda, lines=16)
+    plain = _cpu(ks.backproject_subline_plain(img_t, mats, shape))
+    ref = _cpu(backproject_ref(img_t, mats, shape))
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    _check(k1, plain, ref, nz % 2, "K1")
+    assert rel_rmse(_cpu(k1), plain) < 1e-7
+    k2 = ks.backproject_subline_fused(img_t, mats, shape, nb=nproj)
+    assert torch.equal(k2, k1)
+
+
+def test_k2_at_every_nb_gives_k1_bit_for_bit(cuda):
+    img_t, mats, shape = _case(70, 64, 24, cuda, seed=5, lines=12)
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    for nb in (1, 2, 3, 6, 8):
+        assert torch.equal(
+            ks.backproject_subline_fused(img_t, mats, shape, nb=nb), k1), nb
+    assert ks.LAUNCHES == {"backproject_subline_kernel": 1,
+                           "backproject_subline_fused": 5}
+
+
+def test_tiled_kernel_layout_and_occupancy(cuda):
+    """The kernel's shared-memory layout equals the mirror the CPU tests
+    plan with, and the card holds at least 2 blocks per SM at every plan
+    those tests check; a detector too tall for one block is refused."""
+    import ctypes
+    from test_torch_subline_tiles import _plan_cases, smem_bytes
+    lib = ks._lib()
+    for shape, nh in _plan_cases():
+        plan = ks.launch_plan(shape, nh)
+        assert lib.bp_tile_smem_bytes(nh, plan.win_rows) \
+            == smem_bytes(nh, plan.win_rows), (shape, nh)
+        blocks, regs, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        assert lib.bp_tile_occupancy(
+            plan.kpt, nh, plan.win_rows, ctypes.byref(blocks),
+            ctypes.byref(regs), ctypes.byref(local)) == 0
+        assert blocks.value >= 2, (shape, nh)
+    img_t = torch.zeros((1, 2, 8192), device=cuda)
+    mats = torch.zeros((1, 3, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ks.backproject_subline_kernel(img_t, mats, (8, 8, 8))
+    assert sum(ks.LAUNCHES.values()) == 0
