@@ -5,19 +5,20 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
 
-It builds the CUDA kernels (K1-K6) from the sources in the checkout,
-prints K1/K2's launch plan with the card's occupancy, registers and
-spills, holds each kernel against its plain PyTorch version and the
-oracle at the sweep shapes and at the main path's shape (and K1, K2, K5
-and K6 against each other, bit for bit), drives the FDK main path
-at the paper's P5 size (512^3 voxels, 512 views, 512x512 detector)
-through ``repro_torch.reconstruct`` with each CUDA variant
-(``subline_pl``, ``onehot_pl``, ``banded_pl``, each at nb=8 and nb=1),
-checks that each path launched its kernel and agrees with the
-``subline_pl`` and plain ``algorithm1_mp`` paths on the card, and times
-the kernels, their plain versions, the band schedule, the filter and the
-whole reconstructions with CUDA events (median of 3 after a warm-up; a
-single timed run where one run takes over 5 s).
+It builds the CUDA kernels (K1-K6) from the source in the checkout,
+prints the tiled kernel's launch plan with the card's occupancy,
+registers and spills for both its forms (linear: K1/K2; two-hot: K3/K4),
+holds each kernel against its plain PyTorch version and the oracle at
+the sweep shapes and at the main path's shape (K1, K2, K5 and K6 against
+each other, and K3 against K4, bit for bit), drives the FDK main path at
+the paper's P5 size (512^3 voxels, 512 views, 512x512 detector) through
+``repro_torch.reconstruct`` with each CUDA variant (``subline_pl``,
+``onehot_pl``, ``banded_pl``, each at nb=8 and nb=1), checks that each
+path launched its kernel and agrees with the ``subline_pl`` and plain
+``algorithm1_mp`` paths on the card, and times the kernels, their plain
+versions, the band schedule, the filter and the whole reconstructions
+with CUDA events (median of 3 after a warm-up; a single timed run for a
+plain version that takes over 5 s).
 
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
@@ -51,6 +52,7 @@ BLOCKS = [(1, 8), (2, 8), (4, 8), (4, 16)]
 DEEP_SUBLINE = [(2049, 1024, 4), (2600, 1024, 4), (300, 900, 4),
                 (100, 900, 4)]
 SUBLINE_PLAIN_BAR = 1e-7          # K1/K2 against their plain version
+ONEHOT_PLAIN_BAR = 4e-8           # K3/K4 against their plain version
 K2_NBS = [1, 2, 4, 8]             # K2 timed at P5 at each nb
 NBS = [2, 3, 8]
 K_CHUNKS = [4, 8, 128]            # one-hot k tiles (4 divides no khp here)
@@ -61,30 +63,30 @@ FLOPS_PER_UPDATE = 8.0            # the repo's ct-backproject cost model
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, non-tensor FP32
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 LONG_RUN_MS = 5000.0              # above this, one timed run
-SUBLINE_SRC = "src/repro_torch/kernels/csrc/backproject_subline.cu"
-ONEHOT_SRC = "src/repro_torch/kernels/csrc/backproject_onehot.cu"
-# launch counter -> (label, TPU kernel it replaces, CUDA source)
+SRC = "src/repro_torch/kernels/csrc/backproject_subline.cu"
+# launch counter -> (label: the wrapper and the CUDA kernel it launches,
+# TPU kernel it replaces)
 KERNELS = {
     "backproject_subline_kernel": (
-        "K1 backproject_subline_kernel",
-        "src/repro/kernels/backproject_subline.py:204", SUBLINE_SRC),
+        "K1 backproject_subline_kernel (tile_kernel, linear form)",
+        "src/repro/kernels/backproject_subline.py:204"),
     "backproject_subline_fused": (
-        "K2 backproject_subline_fused",
-        "src/repro/kernels/backproject_subline.py:240", SUBLINE_SRC),
+        "K2 backproject_subline_fused (tile_kernel, linear form)",
+        "src/repro/kernels/backproject_subline.py:240"),
     "backproject_onehot_kernel": (
-        "K3 backproject_onehot_kernel",
-        "src/repro/kernels/backproject_onehot.py:144", ONEHOT_SRC),
+        "K3 backproject_onehot_kernel (tile_kernel, two-hot form)",
+        "src/repro/kernels/backproject_onehot.py:144"),
     "backproject_onehot_fused": (
-        "K4 backproject_onehot_fused",
-        "src/repro/kernels/backproject_onehot.py:175", ONEHOT_SRC),
+        "K4 backproject_onehot_fused (tile_kernel, two-hot form)",
+        "src/repro/kernels/backproject_onehot.py:175"),
     "backproject_banded_kernel": (
-        "K5 backproject_banded_kernel",
-        "src/repro/kernels/backproject_banded.py:148", SUBLINE_SRC),
+        "K5 backproject_banded_kernel (subline_kernel)",
+        "src/repro/kernels/backproject_banded.py:148"),
     "backproject_banded_fused": (
-        "K6 backproject_banded_fused",
-        "src/repro/kernels/backproject_banded.py:186", SUBLINE_SRC),
+        "K6 backproject_banded_fused (subline_kernel)",
+        "src/repro/kernels/backproject_banded.py:186"),
 }
-SOURCES = ["backproject_subline", "backproject_onehot"]
+SOURCES = ["backproject_subline"]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -126,9 +128,8 @@ def card_line() -> str:
 
 
 def timed_long(fn) -> tuple:
-    """``timed(fn)``, or where one run takes over LONG_RUN_MS, that single
-    run (CUDA events; the kernel is built and loaded before). Returns
-    (ms, how)."""
+    """``timed(fn)``, or where one run takes over LONG_RUN_MS (the plain
+    versions at P5), that single run. Returns (ms, how)."""
     import torch
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -180,7 +181,8 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """All sources at once: one nvcc each, started together."""
+    """All sources at once: one nvcc each, started together. The
+    compiler's report names each instance (tile_kernel<kpt, form>)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build(SOURCES)
@@ -226,10 +228,11 @@ def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> int:
         errs[kernel] = max(errs[kernel], float((out - plain).abs().max()))
         msg = f"{label} vs plain {r_plain:.2e} vs oracle {r_ref:.2e}"
         require(r_plain < BAR and r_ref < BAR, msg)
-        if family == "subline":
-            require(r_plain < SUBLINE_PLAIN_BAR,
-                    f"{msg} (bar {SUBLINE_PLAIN_BAR} against the plain "
-                    f"version)")
+        bar = {"subline": SUBLINE_PLAIN_BAR,
+               "onehot": ONEHOT_PLAIN_BAR}.get(family)
+        if bar is not None:
+            require(r_plain < bar,
+                    f"{msg} (bar {bar} against the plain version)")
         if mid is not None:
             r_mid = rel_rmse(out[..., mid], ref[..., mid])
             msg += f" middle plane {r_mid:.2e}"
@@ -267,27 +270,38 @@ def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> int:
                   "backproject_subline_kernel" if npj % nb
                   else "backproject_subline_fused", out, sub_plain)
 
-    # K3/K4: the one-hot kernel; K3 also within 1e-6 of K1
+    # K3/K4: the tiled kernel's two-hot form; every call gives unpadded
+    # K3's volume bit for bit (k_chunk and nb change no bit), within 1e-6
+    # of K1
     plain = ko.backproject_onehot_plain(img_t, mats, shape, k_chunk=8)
+    k3 = ko.backproject_onehot_kernel(img_t, mats, shape)
+    check("onehot", "K3 unpadded", "backproject_onehot_kernel", k3, plain)
+    r = rel_rmse(k3, k1)
+    require(r < ONEHOT_K1_BAR, f"K3 is {r:.2e} from K1 (bar {ONEHOT_K1_BAR})")
+
+    def same_as_k3(label, out):
+        require(torch.equal(out, k3), f"{label} is not bitwise equal to K3")
+        return out
+
     for block in blocks:
         for kc in k_chunks:
-            out = ops._run_padded(ko.backproject_onehot_kernel, img_t, mats,
-                                  shape, block, k_chunk=kc)
             check("onehot", f"K3 block={block} k_chunk={kc}",
-                  "backproject_onehot_kernel", out, plain)
-            r = rel_rmse(out, k1)
-            require(r < ONEHOT_K1_BAR, f"K3 block={block} k_chunk={kc} is "
-                    f"{r:.2e} from K1 (bar {ONEHOT_K1_BAR})")
+                  "backproject_onehot_kernel",
+                  same_as_k3(f"K3 block={block} k_chunk={kc}",
+                             ops._run_padded(ko.backproject_onehot_kernel,
+                                             img_t, mats, shape, block,
+                                             k_chunk=kc)), plain)
             for nb in fused_nbs:
-                check("onehot", f"K4 block={block} k_chunk={kc} nb={nb}",
-                      "backproject_onehot_fused",
-                      ops._run_padded(ko.backproject_onehot_fused, img_t,
-                                      mats, shape, block, k_chunk=kc, nb=nb),
-                      plain)
+                label = f"K4 block={block} k_chunk={kc} nb={nb}"
+                check("onehot", label, "backproject_onehot_fused",
+                      same_as_k3(label, ops._run_padded(
+                          ko.backproject_onehot_fused, img_t, mats, shape,
+                          block, k_chunk=kc, nb=nb)), plain)
         for nb in NBS:
-            out = ops.backproject_onehot(img_t, mats, shape, nb=nb,
-                                         block=block, k_chunk=k_chunks[0],
-                                         proj_loop=True)
+            out = same_as_k3(f"ops block={block} nb={nb}",
+                             ops.backproject_onehot(
+                                 img_t, mats, shape, nb=nb, block=block,
+                                 k_chunk=k_chunks[0], proj_loop=True))
             check("onehot", f"ops block={block} nb={nb}",
                   "backproject_onehot_kernel" if npj % nb
                   else "backproject_onehot_fused", out, plain)
@@ -362,13 +376,15 @@ def phase_kernels_sweep(seed: int) -> dict:
         widened += _sweep_case(case[0], seed + i, errs, *case[1:])
     print(f"[kernels] the band search widened bw in {widened} banded cases")
     require(widened > 0, "no banded case ran the band-width doubling loop")
-    _deep_subline(seed + len(cases), errs)
+    _deep_tiled(seed + len(cases), errs)
     return errs
 
 
-def _deep_subline(seed, errs) -> None:
-    """K1/K2 at DEEP_SUBLINE: against the plain version and the oracle,
-    and K2 at every nb bitwise equal to K1."""
+def _deep_tiled(seed, errs) -> None:
+    """The tiled kernel at DEEP_SUBLINE, in both forms: K1 and K3 against
+    their plain versions and the oracle, K3 within 1e-6 of K1, and K2 (K4)
+    at every nb bitwise equal to K1 (K3). The 900-row detectors run the
+    global-read paths, the deep columns the check-free stage 2."""
     import dataclasses
     import numpy as np
     import torch
@@ -376,7 +392,7 @@ def _deep_subline(seed, errs) -> None:
     from repro_torch.core.geometry import (projection_matrices,
                                            standard_geometry)
     from repro_torch.kernels.ref import backproject_ref
-    ks = launch_modules()[0]
+    ks, ko, _ = launch_modules()
     for nz, det, npj in DEEP_SUBLINE:
         geom = dataclasses.replace(standard_geometry(n=nz, n_det=det,
                                                      n_proj=npj), nx=16,
@@ -401,41 +417,59 @@ def _deep_subline(seed, errs) -> None:
             r_mid = rel_rmse(k1[..., nz // 2], ref[..., nz // 2])
             msg += f", middle plane {r_mid:.2e}"
             require(r_mid < BAR, msg)
+        k3 = ko.backproject_onehot_kernel(img_t, mats, shape)
+        oh_plain = ko.backproject_onehot_plain(img_t, mats, shape)
+        torch.cuda.synchronize()
+        r3, r31 = rel_rmse(k3, oh_plain), rel_rmse(k3, k1)
+        errs["backproject_onehot_kernel"] = max(
+            errs["backproject_onehot_kernel"],
+            float((k3 - oh_plain).abs().max()))
+        msg += f"; K3 vs its plain {r3:.2e}, vs K1 {r31:.2e}"
+        require(r3 < ONEHOT_PLAIN_BAR and r31 < ONEHOT_K1_BAR, msg)
         for nb in [nb for nb in K2_NBS if npj % nb == 0]:
             k2 = ks.backproject_subline_fused(img_t, mats, shape, nb=nb)
             require(torch.equal(k2, k1), f"K2 nb={nb} at nz={nz} is not "
                     f"bitwise equal to K1")
-        print(f"[kernels] {msg}; K2 bitwise equal to K1")
+            k4 = ko.backproject_onehot_fused(img_t, mats, shape, nb=nb)
+            require(torch.equal(k4, k3), f"K4 nb={nb} at nz={nz} is not "
+                    f"bitwise equal to K3")
+        print(f"[kernels] {msg}; K2 = K1 and K4 = K3 bit for bit")
 
 
 def phase_plan(shapes) -> None:
-    """K1/K2's launch plan at each (volume, nh), with what the card says
-    of it: blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-    registers and local (spill) bytes per thread. K1 and K2 launch the
-    same plan."""
+    """The tiled kernel's launch plan at each (volume, nh), with what the
+    card says of it for each form (linear: K1/K2; two-hot: K3/K4): blocks
+    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
+    local (spill) bytes per thread. K1-K4 launch the same plan."""
     import ctypes
     ks = launch_modules()[0]
     lib = ks._lib()
     for shape, nh in shapes:
         plan = ks.launch_plan(shape, nh)
-        blocks, regs, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        err = lib.bp_tile_occupancy(plan.kpt, nh, plan.win_rows,
-                                    ctypes.byref(blocks), ctypes.byref(regs),
-                                    ctypes.byref(local))
-        require(err == 0, f"bp_tile_occupancy failed: CUDA error {err}")
         smem = lib.bp_tile_smem_bytes(nh, plan.win_rows)
+        forms = []
+        for form, name in ((ks.LINEAR, "linear"), (ks.TWO_HOT, "two-hot")):
+            blocks, regs, local = (ctypes.c_int(), ctypes.c_int(),
+                                   ctypes.c_int())
+            err = lib.bp_tile_occupancy(plan.kpt, form, nh, plan.win_rows,
+                                        ctypes.byref(blocks),
+                                        ctypes.byref(regs),
+                                        ctypes.byref(local))
+            require(err == 0, f"bp_tile_occupancy failed: CUDA error {err}")
+            require(blocks.value >= 2, f"fewer than 2 blocks per SM at "
+                    f"{shape} in the {name} form")
+            forms.append(f"{name} form {blocks.value} blocks/SM, "
+                         f"{regs.value} registers, {local.value} B local "
+                         f"per thread")
         print(f"[plan] volume {shape} nh={nh}: tile {ks.TILE}, k chunk "
               f"{plan.k_chunk} planes (kpt {plan.kpt}) + mirrors, grid "
               f"{plan.grid}, a ring of 2 windows of {plan.win_rows} "
-              f"rows, shared {smem} B; {blocks.value} blocks/SM "
-              f"on the card; {regs.value} registers, {local.value} B local "
-              f"per thread")
-        require(blocks.value >= 2, f"fewer than 2 blocks per SM at {shape}")
+              f"rows, shared {smem} B; on the card: {'; '.join(forms)}")
 
 
-# (volume, nh) where K1/K2's launch plan is printed: P5, and the deep
-# columns of DEPTHS and DEEP_SUBLINE
-PLAN_SHAPES = ([((512, 512, 512), 512)]
+# (volume, nh) where the tiled kernel's launch plan is printed: P5, P4
+# (kpt 2), and the deep columns of DEPTHS and DEEP_SUBLINE
+PLAN_SHAPES = ([((512, 512, 512), 512), ((256, 256, 256), 512)]
                + [((16, 16, nz), det)
                   for nz, det, _ in DEPTHS + DEEP_SUBLINE])
 MAIN_RUNS = (
@@ -454,7 +488,10 @@ MAIN_RUNS = (
 )
 # line boxes (i0, j0) of the P5 volume where K3/K4 are held against the
 # plain one-hot version (the whole volume would take the plain version
-# minutes per projection): a corner, the centre, an edge
+# minutes per projection): a corner, the centre, an edge. Each box's
+# rel-RMSE is scaled by the box's own largest value, and the bar there is
+# the one K1 is held to against its plain version, SUBLINE_PLAIN_BAR; K1's
+# own rel-RMSE against its plain version on each box is printed beside.
 ONEHOT_BOXES = ((0, 0), (252, 252), (504, 0))
 BOX = 8
 
@@ -583,16 +620,23 @@ def phase_p5(seed: int, errs: dict) -> dict:
             # the whole volume against the sub-line plain version (the same
             # function), line boxes against the one-hot plain version
             r = rel_rmse(out, plain)
+            r_boxes = []
             for i0, j0 in ONEHOT_BOXES:
                 box = ko.backproject_onehot_plain(
                     img_t, mats, (BOX, BOX, geom.nz), origin=(i0, j0))
                 got = out[i0:i0 + BOX, j0:j0 + BOX]
                 r_box = rel_rmse(got, box)
                 errs[name] = max(errs[name], float((got - box).abs().max()))
-                require(r_box < BAR, f"{name} disagrees with the one-hot "
-                        f"plain version on lines ({i0}, {j0}): {r_box:.3e}")
-            what = (f"vs sub-line plain {r:.3e}, vs one-hot plain on "
-                    f"{len(ONEHOT_BOXES)} {BOX}x{BOX}-line boxes: max abs "
+                require(r_box < SUBLINE_PLAIN_BAR, f"{name} disagrees with "
+                        f"the one-hot plain version on lines ({i0}, {j0}): "
+                        f"{r_box:.3e} (bar {SUBLINE_PLAIN_BAR})")
+                r_k1 = rel_rmse(outs["backproject_subline_kernel"][
+                    i0:i0 + BOX, j0:j0 + BOX], plain[i0:i0 + BOX,
+                                                     j0:j0 + BOX])
+                r_boxes.append(f"({i0}, {j0}) {r_box:.3e} (K1 vs its plain "
+                               f"{r_k1:.3e})")
+            what = (f"vs sub-line plain {r:.3e}; vs one-hot plain on "
+                    f"{BOX}x{BOX}-line boxes: {', '.join(r_boxes)}; max abs "
                     f"{errs[name]:.3e}")
         else:
             r = rel_rmse(out, plains[name])
@@ -613,6 +657,15 @@ def phase_p5(seed: int, errs: dict) -> dict:
     r = rel_rmse(outs["backproject_subline_kernel"], plain)
     require(r < SUBLINE_PLAIN_BAR, f"K1 is {r:.3e} from its plain version "
             f"at P5 (bar {SUBLINE_PLAIN_BAR})")
+    require(torch.equal(outs["backproject_onehot_kernel"],
+                        outs["backproject_onehot_fused"]),
+            "K3 and K4 are not bitwise equal at P5")
+    print("[P5] K3 = K4 bit for bit")
+    r = rel_rmse(outs["backproject_onehot_kernel"],
+                 outs["backproject_subline_kernel"])
+    print(f"[P5] K3 vs K1: rel_rmse {r:.3e}")
+    require(r < ONEHOT_K1_BAR, f"K3 is {r:.3e} from K1 at P5 (bar "
+            f"{ONEHOT_K1_BAR})")
     del outs
     del plains, out
 
@@ -633,16 +686,12 @@ def phase_p5(seed: int, errs: dict) -> dict:
               f"= {t_op * 1e3:.3f} ms, {n_bytes:.3e} B / 3.35 TB/s = "
               f"{t_b * 1e3:.3f} ms -> {bounds[name][0]:.3f} ms "
               f"({bounds[name][1]})")
-    onehot_flops = 2.0 * geom.nx * geom.ny * geom.nz * geom.nh * geom.n_proj
-    print(f"[P5] the one-hot design's own work: {onehot_flops:.3e} FLOP "
-          f"(2*nh per sample) / 67 TFLOP/s = "
-          f"{onehot_flops / PEAK_FP32_FLOPS * 1e3:.3f} ms")
     times = {}
     for name, call in calls.items():
-        times[name], how = timed_long(call)
-        print(f"[P5] {KERNELS[name][0]}: {times[name]:.3f} ms ({how}), "
-              f"{prob.updates / times[name] / 1e6:.1f} GUPS, "
-              f"{bounds[name][0] / times[name]:.4f} of the bound")
+        times[name] = timed(call)
+        print(f"[P5] {KERNELS[name][0]}: {times[name]:.3f} ms (median of 3 "
+              f"after a warm-up), {prob.updates / times[name] / 1e6:.1f} "
+              f"GUPS, {bounds[name][0] / times[name]:.4f} of the bound")
     for nb in K2_NBS:        # nb changes no launch: the same plan as K1
         ms = timed(lambda: ks.backproject_subline_fused(img_t, mats, shape,
                                                         nb=nb))
@@ -681,15 +730,16 @@ def phase_p5(seed: int, errs: dict) -> dict:
               f"band_layout {ms_layout:.3f} ms")
     filter_ms = timed(lambda: fdk_filter_chunk(p, geom, geom.n_proj))
     print(f"[P5] filter (fdk_filter_chunk, whole set): {filter_ms:.3f} ms")
+    for label, opts, _ in MAIN_RUNS:
+        ms = timed(lambda: repro_torch.reconstruct(
+            p, geom, options=ReconOptions(**opts)))
+        print(f"[P5] reconstruct {label} from device projections: "
+              f"{ms:.3f} ms (median of 3 after a warm-up), "
+              f"{prob.updates / ms / 1e6:.1f} GUPS")
     for variant in ("subline_pl", "onehot_pl", "banded_pl"):
-        ms, how = timed_long(lambda: repro_torch.reconstruct(
-            p, geom, options=ReconOptions(variant=variant)))
-        print(f"[P5] reconstruct {variant} (nb=8) from device projections: "
-              f"{ms:.3f} ms ({how}), {prob.updates / ms / 1e6:.1f} GUPS")
-    profile_reconstruct(p, geom, "subline_pl")
-    profile_reconstruct(p, geom, "banded_pl")
+        profile_reconstruct(p, geom, variant)
     return {name: {"name": KERNELS[name][0], "route": "cuda",
-                   "source": KERNELS[name][2], "replaces": KERNELS[name][1],
+                   "source": SRC, "replaces": KERNELS[name][1],
                    "launches": main_launches[name],
                    "max_abs_err": errs[name], "ms": times[name],
                    "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],

@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Time the sub-line back-projector of ``repro_torch`` on one CUDA card:
-K1, K2 (nb=8) and ``reconstruct`` with ``subline_pl``, at problems of the
-paper's Table 3.
+"""Time the back-projectors of ``repro_torch`` on one CUDA card, at
+problems of the paper's Table 3:
+
+- ``subline``: K1, K2 (nb=8) and ``reconstruct`` with ``subline_pl``;
+- ``onehot``: K3, K4 (nb=8) and ``reconstruct`` with ``onehot_pl``;
+- ``banded``: K5, K6 (nb=8, bands from ``band_schedule``) and
+  ``reconstruct`` with ``banded_pl``.
 
     python3 scripts/time_subline.py [--src DIR] [--problems P4 P5 P8]
-                                    [--plans] [--tag NAME] [--seed N]
+        [--kernels subline onehot banded] [--plans] [--volumes DIR]
+        [--tag NAME] [--seed N]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's), so that two trees can be timed in turn in one
@@ -14,8 +19,12 @@ median of 3 CUDA-event timings after one warm-up. The projections are
 uniform random numbers from ``--seed``: the kernels' work does not depend
 on them. ``--plans`` also times K1 of this checkout under each launch plan
 of ``PLANS`` and requires each to give the default plan's volume bit for
-bit. Every line starts with ``--tag``; the first names the card and its
-power limit.
+bit. ``--volumes DIR`` saves this run's K3 volume at each problem as
+``DIR/k3-<problem>-<tag>.pt`` and compares it with every other tag's
+saved there: bit for bit, and by rel-RMSE and max abs difference, so a
+run of the change after one of the parent says whether the two trees'
+K3 give the same volume. Every line starts with ``--tag``; the first
+names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+GROUPS = ("subline", "onehot", "banded")
 # (kpt, win_rows): k chunks of 32*kpt planes, window slots of win_rows rows
 PLANS = [(4, 272), (2, 272), (1, 272), (1, 208), (1, 144)]
 
@@ -48,11 +58,22 @@ def timed(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def rel_rmse(a, b) -> float:
+    """tests/conftest.py::rel_rmse, on tensors, in float64."""
+    a = a.double()
+    b = b.double()
+    scale = max(float(b.abs().max()), 1e-12)
+    return float(((a - b) ** 2).mean().sqrt()) / scale
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--problems", nargs="+", default=["P4", "P5", "P8"])
+    ap.add_argument("--kernels", nargs="+", choices=GROUPS,
+                    default=["subline"])
     ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--volumes", default=None)
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -68,6 +89,8 @@ def main(argv=None) -> int:
     from repro_torch.configs.ct_paper import get_problem
     from repro_torch.core.backproject import transpose_projections
     from repro_torch.core.geometry import projection_matrices
+    from repro_torch.kernels import backproject_banded as kb
+    from repro_torch.kernels import backproject_onehot as ko
     from repro_torch.kernels import backproject_subline as ks
 
     tag = args.tag
@@ -84,27 +107,76 @@ def main(argv=None) -> int:
                                         dtype=np.float32)).cuda()
         img_t = transpose_projections(p)
         mats = projection_matrices(geom)
-        k1 = ks.backproject_subline_kernel(img_t, mats, shape)
-        k2 = ks.backproject_subline_fused(img_t, mats, shape, nb=8)
-        torch.cuda.synchronize()
-        if not torch.equal(k1, k2):
-            print(f"[{tag}] {label}: K1 and K2 differ", file=sys.stderr)
-            return 1
-        ms1 = timed(lambda: ks.backproject_subline_kernel(img_t, mats,
-                                                          shape))
-        ms2 = timed(lambda: ks.backproject_subline_fused(img_t, mats, shape,
-                                                         nb=8))
-        msr = timed(lambda: repro_torch.reconstruct(
-            p, geom, options=ReconOptions(variant="subline_pl")))
-        print(f"[{tag}] {label} ({prob.det}^2 detector, {prob.vol}^3 "
-              f"volume, {prob.n_proj} views): K1 {ms1:.3f} ms, K2 (nb=8) "
-              f"{ms2:.3f} ms, reconstruct subline_pl {msr:.3f} ms; K1 sum "
-              f"{float(k1.double().sum()):.9e}", flush=True)
-        if args.plans:
-            time_plans(tag, label, ks, img_t, mats, shape, geom.nh, k1)
-        del p, img_t, k1, k2
+        what = f"({prob.det}^2 detector, {prob.vol}^3 volume, " \
+               f"{prob.n_proj} views)"
+        bands = {}
+        for group in (1, 8) if "banded" in args.kernels else ():
+            img_b, band, bw = kb.band_schedule(img_t, mats, shape,
+                                               block=(4, 8), bw=32,
+                                               group=group)
+            bands[group] = dict(img_b=img_b, band=band, bw=bw)
+        # group -> (names, the single-view kernel, the fused one at nb=8,
+        # the reconstruct variant)
+        calls = {
+            "subline": (("K1", "K2"),
+                        lambda: ks.backproject_subline_kernel(img_t, mats,
+                                                              shape),
+                        lambda: ks.backproject_subline_fused(
+                            img_t, mats, shape, nb=8), "subline_pl"),
+            "onehot": (("K3", "K4"),
+                       lambda: ko.backproject_onehot_kernel(img_t, mats,
+                                                            shape),
+                       lambda: ko.backproject_onehot_fused(
+                           img_t, mats, shape, nb=8), "onehot_pl"),
+            "banded": (("K5", "K6"),
+                       lambda: kb.backproject_banded_kernel(
+                           bands[1]["img_b"], mats, bands[1]["band"], shape,
+                           bw=bands[1]["bw"], nw=geom.nw),
+                       lambda: kb.backproject_banded_fused(
+                           bands[8]["img_b"], mats, bands[8]["band"], shape,
+                           bw=bands[8]["bw"], nw=geom.nw, nb=8),
+                       "banded_pl"),
+        }
+        for group in args.kernels:
+            (n1, n2), one, fused, variant = calls[group]
+            v1, v2 = one(), fused()
+            torch.cuda.synchronize()
+            if not torch.equal(v1, v2):
+                print(f"[{tag}] {label}: {n1} and {n2} differ",
+                      file=sys.stderr)
+                return 1
+            ms1, ms2 = timed(one), timed(fused)
+            msr = timed(lambda: repro_torch.reconstruct(
+                p, geom, options=ReconOptions(variant=variant)))
+            print(f"[{tag}] {label} {what}: {n1} {ms1:.3f} ms, {n2} (nb=8) "
+                  f"{ms2:.3f} ms, reconstruct {variant} {msr:.3f} ms; {n1} "
+                  f"sum {float(v1.double().sum()):.9e}", flush=True)
+            if group == "subline" and args.plans:
+                time_plans(tag, label, ks, img_t, mats, shape, geom.nh, v1)
+            if group == "onehot" and args.volumes:
+                compare_volumes(tag, label, Path(args.volumes), v1)
+            del v1, v2
+        del p, img_t, bands
         torch.cuda.empty_cache()
     return 0
+
+
+def compare_volumes(tag, label, where: Path, k3) -> None:
+    """Save this tree's K3 volume under ``where`` and compare it with the
+    other tags' saved there."""
+    import torch
+    where.mkdir(parents=True, exist_ok=True)
+    torch.save(k3.cpu(), where / f"k3-{label}-{tag}.pt")
+    for other in sorted(where.glob(f"k3-{label}-*.pt")):
+        other_tag = other.stem[len(f"k3-{label}-"):]
+        if other_tag == tag:
+            continue
+        ref = torch.load(other).to(k3.device)
+        diff = (k3 - ref).abs()
+        print(f"[{tag}] {label} K3 against {other_tag}'s: bitwise equal "
+              f"{bool(torch.equal(k3, ref))}, rel_rmse "
+              f"{rel_rmse(k3, ref):.3e}, max abs {float(diff.max()):.3e}, "
+              f"voxels that differ {int((k3 != ref).sum())}", flush=True)
 
 
 def time_plans(tag, label, ks, img_t, mats, shape, nh, k1) -> None:
@@ -123,7 +195,7 @@ def time_plans(tag, label, ks, img_t, mats, shape, nh, k1) -> None:
                 win_rows=win_rows)
             blocks, regs, local = (ctypes.c_int(), ctypes.c_int(),
                                    ctypes.c_int())
-            err = lib.bp_tile_occupancy(kpt, nh, win_rows,
+            err = lib.bp_tile_occupancy(kpt, ks.LINEAR, nh, win_rows,
                                         ctypes.byref(blocks),
                                         ctypes.byref(regs),
                                         ctypes.byref(local))

@@ -20,7 +20,8 @@ the hand-written CUDA kernel):
     algorithm1_mp    O1..O5 (paper Algorithm 1; nb batching)
     subline_pl       CUDA: O1..O5, kernels/csrc/backproject_subline.cu
     onehot_pl        CUDA: subline_pl with stage 2 as a two-hot
-                     contraction, kernels/csrc/backproject_onehot.cu
+                     contraction (its nonzero terms), the two-hot form
+                     of kernels/csrc/backproject_subline.cu
     banded_pl        CUDA: subline_pl reading each tile's band of
                      detector columns, subline_kernel of
                      kernels/csrc/backproject_subline.cu

@@ -78,10 +78,15 @@ def check_depth(lib, nz: int) -> None:
 
 
 def _max_stage(nh: int, nb: int) -> int:
-    """K6's staging depth for ``nb``: the deepest whose block fits."""
+    """K6's staging depth for ``nb``: the deepest whose block fits. The
+    depth changes no result: each voxel's sum is taken in projection order
+    whatever the staging."""
     lib = _lib()
-    return ks.max_stage(
-        nb, lambda st: lib.bp_subline_smem_bytes(nh, st) <= ks.SMEM_PER_BLOCK)
+    stage = nb
+    while stage > 1 and \
+            lib.bp_subline_smem_bytes(nh, stage) > ks.SMEM_PER_BLOCK:
+        stage -= 1
+    return stage
 
 
 def band_layout(img_t: torch.Tensor, bw: int):

@@ -1,34 +1,43 @@
-"""One-hot interpolation back-projection kernel for Hopper.
+"""One-hot interpolation back-projection for Hopper.
 
 Replaces the two Pallas kernels of the JAX package's
 ``kernels/backproject_onehot.py``: ``backproject_onehot_pallas`` (l.144,
-K3) and ``backproject_onehot_fused`` (l.175, K4). One CUDA kernel,
-``csrc/backproject_onehot.cu``, serves both: K3 stages one projection per
-step of its projection loop, K4 stages ``nb``.
+K3) and ``backproject_onehot_fused`` (l.175, K4). Both launch the tiled
+sub-line kernel (``tile_kernel`` in ``csrc/backproject_subline.cu``,
+under ``backproject_subline.launch_plan``) with stage 2 in its two-hot
+form, ``bp::twohot_rn``: the nonzero terms of the reference's contraction
+``val[k] = sum_n A[k, n] * row[n]``, whose two-hot row ``A`` is zero but
+for ``1 - dy`` at ``iyc`` and ``dy`` at ``iyc + 1``. Taken in the dense
+sum's roundings, ``fma(dy, row[iyc+1], (1-dy) * row[iyc])``, they give the
+dense sum bit for bit on finite projections (a term ``0 * row[n]`` leaves
+a finite partial sum as it is), up to the sign of a zero sum. A
+non-finite projection value the dense form spreads to every plane of the
+line (``0 * inf = NaN``); the kernel, like the oracle, keeps it to the
+planes that sample it.
 
-The schedule, hoisting, symmetry and stage 1 are the sub-line kernel's.
-Stage 2 is the reference's contraction over the detector rows,
-``val[k] = sum_n A[k, n] * row[n]``, with the two-hot interpolation row
-``A`` built from compares, in ``k_chunk`` tiles of k: 2*nh FLOP per
-sample where the sub-line kernel gathers two rows.
+``k_chunk`` is accepted and clipped as the reference does, and changes no
+bit: in the contraction it only tiles the planes, and each plane's value
+depends on its own row of ``A`` alone. The kernel's k chunks come from
+the launch plan. K4 keeps ``nb`` for the reference's ``n_proj % nb == 0``
+contract; it is the same launch as K3, so K3 = K4 bit for bit.
 
-What bounds it on an H100. The function is K1's (8 FLOP per voxel-view
-update: 5.5e11 FLOP at P5, 8.2 ms at 67 TFLOP/s). The design's own work
-is the contraction, 2*nh FLOP per sample: 7.0e13 FLOP at P5, about 1.05 s
-of FP32 FMA on the CUDA cores, each FMA with its two compares and selects.
-On the TPU the contraction ran on the MXU as a batched GEMV with a
-different ``A`` per line; the tensor cores' ``mma``/``wgmma`` need N >= 8
-columns sharing one A, and plain TF32 would miss the 1e-6 bar to K1, so
-this kernel contracts in FP32 on the CUDA cores, every lane holding a few
-planes and reading the row once per n as a shared-memory broadcast.
+What bounds it on an H100. The function is K1's, bound by operations:
+8 FLOP per voxel-view update, 5.5e11 FLOP at P5, 8.2 ms at 67 TFLOP/s.
+What bounds this design is K1's too, instruction issue (about 20 a
+sample, 2 blocks of 8 warps an SM at P5): the two-hot form costs what the
+linear one does, an fsub, an fmul and an fma. The kernel it replaced ran
+the contraction densely over all nh rows, 2*nh FMAs a sample (7.0e13
+FLOP at P5), each with two compares and two selects to build ``A``: about
+7.5 s at P5. On the TPU the dense form paid (the MXU contracts it, where a
+gather along lanes serialises); on Hopper a gather from shared memory is
+cheap, and the tensor cores cannot take it (each line has its own ``A``).
 
-On a CPU tensor the wrappers run :func:`backproject_onehot_plain`; on a
-CUDA tensor they launch the kernel or raise.
+On a CPU tensor the wrappers run :func:`backproject_onehot_plain`, the
+dense contraction; on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Sequence
 
@@ -45,28 +54,10 @@ LAUNCHES: Dict[str, int] = {"backproject_onehot_kernel": 0,
 #: lines are chunked to stay under it.
 PLAIN_BLOCK_BYTES = 1 << 26
 
-_LIB = None
-
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from . import _build
-        lib = _build.load("backproject_onehot")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bp_onehot_launch.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
-        lib.bp_onehot_launch.restype = ci
-        lib.bp_onehot_smem_bytes.argtypes = [ci, ci, ci]
-        lib.bp_onehot_smem_bytes.restype = ctypes.c_size_t
-        lib.bp_cuda_error_string.argtypes = [ci]
-        lib.bp_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
 
 
 def clip_k_chunk(k_chunk: int, nz: int) -> int:
@@ -135,47 +126,22 @@ def backproject_onehot_plain(img_t: torch.Tensor, mat: torch.Tensor,
     return vol.reshape(ni, nj, nz)
 
 
-def _launch(img_t, mat, shape, k_chunk: int, stage: int) -> torch.Tensor:
-    lib = _lib()
-    ni, nj, nz = shape
-    n_proj, nw, nh = img_t.shape
-    if lib.bp_onehot_smem_bytes(nh, nz, stage) > ks.SMEM_PER_BLOCK:
-        raise ValueError(f"nh={nh}, nz={nz} need more shared memory per "
-                         f"block than the card has, even at one staged "
-                         f"projection")
-    out = torch.empty(shape, dtype=torch.float32, device=img_t.device)
-    with torch.cuda.device(img_t.device):
-        stream = torch.cuda.current_stream(img_t.device).cuda_stream
-        err = lib.bp_onehot_launch(
-            img_t.data_ptr(), mat.data_ptr(), out.data_ptr(), n_proj, nw, nh,
-            ni, nj, nz, stage, k_chunk, stream)
-    if err != 0:
-        raise ks.launch_error("backproject_onehot", lib, err)
-    return out
-
-
-def _max_stage(nh: int, nz: int, nb: int) -> int:
-    lib = _lib()
-    return ks.max_stage(
-        nb, lambda st: lib.bp_onehot_smem_bytes(nh, nz, st)
-        <= ks.SMEM_PER_BLOCK)
-
-
 def backproject_onehot_kernel(img_t: torch.Tensor, mat: torch.Tensor,
                               vol_shape_xyz, *, block=(4, 8),
                               k_chunk: int = 128) -> torch.Tensor:
-    """K3: one-hot back-projection, one staged projection per loop step.
+    """K3: one-hot back-projection through the tiled kernel's two-hot
+    form.
 
     img_t (np, nw, nh) f32; mat (np, 3, 4) f32, both contiguous and on
     one device. Returns vol_t (nx, ny, nz) f32. ``block`` is only the
-    caller's i/j padding granularity; ``k_chunk`` tiles the k range
-    (clipped to nz - nz//2) and changes no result.
+    caller's i/j padding granularity; ``k_chunk`` is the reference's k
+    tile, clipped to nz - nz//2, and changes no bit.
     """
     shape = ks._check(img_t, mat, vol_shape_xyz, block)
     kc = clip_k_chunk(k_chunk, shape[2])
     if img_t.device.type == "cpu":
         return backproject_onehot_plain(img_t, mat, shape, k_chunk=kc)
-    out = _launch(img_t, mat, shape, kc, stage=1)
+    out = ks.launch_tile(img_t, mat, shape, ks.TWO_HOT, "backproject_onehot")
     LAUNCHES["backproject_onehot_kernel"] += 1
     return out
 
@@ -183,8 +149,9 @@ def backproject_onehot_kernel(img_t: torch.Tensor, mat: torch.Tensor,
 def backproject_onehot_fused(img_t: torch.Tensor, mat: torch.Tensor,
                              vol_shape_xyz, *, block=(4, 8),
                              k_chunk: int = 128, nb: int = 8) -> torch.Tensor:
-    """K4: K3 staging ``nb`` projections per loop step (fewer only where
-    shared memory caps the depth). Requires ``n_proj % nb == 0``."""
+    """K4: the fused multi-batch form of K3, the same launch, so the same
+    bits whatever ``nb``. Requires ``n_proj % nb == 0``, like the
+    reference's fused kernel."""
     shape = ks._check(img_t, mat, vol_shape_xyz, block)
     kc = clip_k_chunk(k_chunk, shape[2])
     nb = int(nb)
@@ -193,7 +160,6 @@ def backproject_onehot_fused(img_t: torch.Tensor, mat: torch.Tensor,
                          f"n_proj={img_t.shape[0]}, got nb={nb}")
     if img_t.device.type == "cpu":
         return backproject_onehot_plain(img_t, mat, shape, k_chunk=kc)
-    out = _launch(img_t, mat, shape, kc,
-                  stage=_max_stage(img_t.shape[2], shape[2], nb))
+    out = ks.launch_tile(img_t, mat, shape, ks.TWO_HOT, "backproject_onehot")
     LAUNCHES["backproject_onehot_fused"] += 1
     return out

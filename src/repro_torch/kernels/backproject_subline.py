@@ -5,7 +5,9 @@ Replaces the two Pallas kernels of the JAX package's
 (l.204, K1) and ``backproject_subline_fused`` (l.240, K2). One CUDA
 kernel, ``tile_kernel`` in ``csrc/backproject_subline.cu``, serves both
 with the same launch (:func:`launch_plan`); K2 keeps ``nb`` for the
-reference's ``n_proj % nb == 0`` contract.
+reference's ``n_proj % nb == 0`` contract. The one-hot K3/K4
+(``backproject_onehot.py``) launch the same kernel in its two-hot form
+through :func:`launch_tile`.
 
 What bounds it on an H100. By the repo's cost model (8 floating-point
 operations per voxel-view update) the function is bound by operations: at
@@ -48,9 +50,14 @@ LAUNCHES: Dict[str, int] = {"backproject_subline_kernel": 0,
 #: Dynamic shared memory a block may use on an H100 (227 KB).
 SMEM_PER_BLOCK = 232448
 
-#: The voxel lines (i, j) one block of the tiled K1/K2 kernel owns
+#: The voxel lines (i, j) one block of the tiled K1-K4 kernel owns
 #: (``tiled::kTi``, ``tiled::kTj`` of the CUDA source).
 TILE = (8, 8)
+
+#: Stage 2's interpolation forms of the tiled kernel (``tiled::kLinear``,
+#: ``tiled::kTwoHot``): K1/K2 interpolate linearly, K3/K4 take the two-hot
+#: contraction's nonzero terms.
+LINEAR, TWO_HOT = 0, 1
 
 _LIB = None
 
@@ -73,11 +80,11 @@ def _lib():
         from . import _build
         lib = _build.load("backproject_subline")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bp_tile_launch.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
+        lib.bp_tile_launch.argtypes = [vp, vp, vp] + [ci] * 9 + [vp]
         lib.bp_tile_launch.restype = ci
         lib.bp_tile_smem_bytes.argtypes = [ci, ci]
         lib.bp_tile_smem_bytes.restype = ctypes.c_size_t
-        lib.bp_tile_occupancy.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 3
+        lib.bp_tile_occupancy.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
         lib.bp_tile_occupancy.restype = ci
         lib.bp_cuda_error_string.argtypes = [ci]
         lib.bp_cuda_error_string.restype = ctypes.c_char_p
@@ -200,19 +207,9 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
         f"({lib.bp_cuda_error_string(err).decode()})")
 
 
-def max_stage(nb: int, fits) -> int:
-    """Deepest staging (<= nb) for which ``fits(stage)`` (the block's
-    buffers fit its shared memory). The depth changes no result: each
-    voxel's sum is taken in projection order whatever the staging."""
-    stage = nb
-    while stage > 1 and not fits(stage):
-        stage -= 1
-    return stage
-
-
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How the tiled K1/K2 kernel (tiles of TILE lines) is launched for
+    """How the tiled K1-K4 kernel (tiles of TILE lines) is launched for
     one call. The kernel lays out its shared memory from ``win_rows`` and
     the detector height (``bp_tile_smem_bytes``)."""
     kpt: int             # direct planes per lane of a block
@@ -249,7 +246,9 @@ def launch_plan(vol_shape_xyz, nh: int) -> LaunchPlan:
     return LaunchPlan(kpt, k_chunk, grid, 2 * k_chunk * min(m, 4) + 16)
 
 
-def _launch(img_t, mat, shape) -> torch.Tensor:
+def launch_tile(img_t, mat, shape, form: int, name: str) -> torch.Tensor:
+    """One launch of the tiled kernel under :func:`launch_plan`, stage 2
+    in ``form``; raises naming ``name`` if the launch fails."""
     lib = _lib()
     ni, nj, nz = shape
     n_proj, nw, nh = img_t.shape
@@ -259,9 +258,9 @@ def _launch(img_t, mat, shape) -> torch.Tensor:
         stream = torch.cuda.current_stream(img_t.device).cuda_stream
         err = lib.bp_tile_launch(
             img_t.data_ptr(), mat.data_ptr(), out.data_ptr(), n_proj, nw, nh,
-            ni, nj, nz, plan.kpt, plan.win_rows, stream)
+            ni, nj, nz, plan.kpt, plan.win_rows, form, stream)
     if err != 0:
-        raise launch_error("backproject_subline", lib, err)
+        raise launch_error(name, lib, err)
     return out
 
 
@@ -278,7 +277,7 @@ def backproject_subline_kernel(img_t: torch.Tensor, mat: torch.Tensor,
     shape = _check(img_t, mat, vol_shape_xyz, block)
     if img_t.device.type == "cpu":
         return backproject_subline_plain(img_t, mat, shape)
-    out = _launch(img_t, mat, shape)
+    out = launch_tile(img_t, mat, shape, LINEAR, "backproject_subline")
     LAUNCHES["backproject_subline_kernel"] += 1
     return out
 
@@ -299,6 +298,6 @@ def backproject_subline_fused(img_t: torch.Tensor, mat: torch.Tensor,
                          f"n_proj={img_t.shape[0]}, got nb={nb}")
     if img_t.device.type == "cpu":
         return backproject_subline_plain(img_t, mat, shape)
-    out = _launch(img_t, mat, shape)
+    out = launch_tile(img_t, mat, shape, LINEAR, "backproject_subline")
     LAUNCHES["backproject_subline_fused"] += 1
     return out

@@ -1,9 +1,8 @@
-// Device helpers shared by the back-projection kernels of this directory
-// (backproject_subline.cu: the tiled K1/K2 and the banded K5/K6;
-// backproject_onehot.cu: K3/K4). The per-line scalars are computed in the order of the plain
-// PyTorch versions with round-to-nearest intrinsics, so FMA contraction
-// cannot move floor(x), floor(y) or the validity masks across an edge
-// relative to them.
+// Device helpers of the back-projection kernels in backproject_subline.cu
+// (the tiled K1-K4 and the banded K5/K6). The per-line scalars are
+// computed in the order of the plain PyTorch versions with round-to-nearest
+// intrinsics, so FMA contraction cannot move floor(x), floor(y) or the
+// validity masks across an edge relative to them.
 
 #pragma once
 
@@ -82,6 +81,33 @@ __device__ __forceinline__ float blend_rn(float v0, float v1, float dx) {
   return __fmaf_rn(v0, 1.0f - dx, __fmul_rn(v1, dx));
 }
 
+// Stage 2 of the tiled kernel at row coordinate y, in two forms that read
+// the same two rows under the same range rule. interp_rn is K1/K2's linear
+// interpolation. twohot_rn is K3/K4's two-hot contraction
+// sum_n A[n] * row[n] (A zero but for 1 - dy at iy and dy at iy + 1) with
+// its zero terms dropped: in the dense sum taken in row order, the first
+// nonzero term is fma(1 - dy, row[iy], 0), the second fma(dy, row[iy+1], v),
+// and a term 0 * row[n] leaves a finite partial sum as it is, so the two
+// agree bit for bit on finite rows, up to the sign of a zero sum. (A
+// non-finite row value the dense form spreads to every plane, 0 * inf =
+// NaN; this form, like the oracle, keeps it to the planes that sample it.)
+// Each returns 0 when floor(y) misses [0, nh-2], NaN included, so a row
+// index is never taken from such a y; the *_inside forms are for samples
+// known to lie on the detector: the same bits without the check.
+__device__ __forceinline__ float interp_inside(const float* row, float y) {
+  const float y0 = floorf(y);
+  const int iy = (int)y0;
+  const float dy = y - y0;
+  return __fmaf_rn(row[iy], 1.0f - dy, __fmul_rn(row[iy + 1], dy));
+}
+
+__device__ __forceinline__ float twohot_inside(const float* row, float y) {
+  const float y0 = floorf(y);
+  const int iy = (int)y0;
+  const float dy = y - y0;
+  return __fmaf_rn(dy, row[iy + 1], __fmul_rn(1.0f - dy, row[iy]));
+}
+
 __device__ __forceinline__ float interp_rn(const float* row, float y,
                                            float ylast) {
   const float y0 = floorf(y);
@@ -89,6 +115,15 @@ __device__ __forceinline__ float interp_rn(const float* row, float y,
   const int iy = (int)y0;
   const float dy = y - y0;
   return __fmaf_rn(row[iy], 1.0f - dy, __fmul_rn(row[iy + 1], dy));
+}
+
+__device__ __forceinline__ float twohot_rn(const float* row, float y,
+                                           float ylast) {
+  const float y0 = floorf(y);
+  if (!(y0 >= 0.0f && y0 <= ylast)) return 0.0f;
+  const int iy = (int)y0;
+  const float dy = y - y0;
+  return __fmaf_rn(dy, row[iy + 1], __fmul_rn(1.0f - dy, row[iy]));
 }
 
 __device__ __forceinline__ float accumulate_rn(float acc, float v, float w) {

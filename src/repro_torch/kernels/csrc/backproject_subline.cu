@@ -1,11 +1,16 @@
 // Sub-line cone-beam back-projection for Hopper (sm_90a): the paper's
 // Algorithm 1 (hoisting O2, O3 mirror, sub-line buffer O4, nb staging O5).
-// Replaces four Pallas kernels of the JAX package:
+// Replaces the six Pallas kernels of the JAX package:
 //   K1 backproject_subline_pallas (l.204), K2 backproject_subline_fused
-//      (l.240) of src/repro/kernels/backproject_subline.py: tile_kernel;
+//      (l.240) of src/repro/kernels/backproject_subline.py: tile_kernel in
+//      its linear form;
+//   K3 backproject_onehot_pallas (l.144), K4 backproject_onehot_fused
+//      (l.175) of src/repro/kernels/backproject_onehot.py: tile_kernel in
+//      its two-hot form;
 //   K5 _banded_call, K6 _banded_call_fused
 //      (src/repro/kernels/backproject_banded.py): subline_kernel<KPT>.
-// ../backproject_subline.py and ../backproject_banded.py wrap them.
+// ../backproject_subline.py, ../backproject_onehot.py and
+// ../backproject_banded.py wrap them.
 //
 // Inputs, all float32 and contiguous:
 //   img   (n_proj, nw, nh)              filtered projections, detector
@@ -17,7 +22,7 @@
 // Output:
 //   out   (ni, nj, nz)                  vol_t[i][j][k], written exactly once
 //
-// ---- K1/K2: tile_kernel ----------------------------------------------------
+// ---- K1-K4: tile_kernel -----------------------------------------------------
 // What bounds it on an H100. By the repo's cost model (8 FLOP per
 // voxel-view update) the function is bound by operations: 8.2 ms at P5
 // against 0.32 ms of compulsory bytes. The kernel it replaced (one warp per
@@ -67,6 +72,13 @@
 //    bp::accumulate_rn in view order: the roundings the banded instance's
 //    helpers compile to, written out, so K1/K2 give the banded kernel's
 //    volume bit for bit.
+//  * K3/K4 are the same kernel with stage 2's interpolation in the two-hot
+//    form (the kForm template parameter: bp::twohot_rn, the nonzero terms
+//    of the TPU kernel's contraction over all nh rows, in the dense sum's
+//    roundings). It reads the same two rows under the same range rule, so
+//    the windows, the copies and the plan are K1's. The kernel it replaced
+//    ran that contraction densely, 2*nh FMAs a sample (7.0e13 FLOP at P5),
+//    where this form does 2.
 // Only issue_window and stage1_lines<true> know where a column lies in the
 // image: a later change can give K5/K6 their window from the band layout
 // there.
@@ -241,7 +253,7 @@ int launch(const float* img, const float* mat, float* out, int n_proj,
 }
 
 // ---------------------------------------------------------------------------
-// K1/K2: the tiled kernel (see the note at the top of this file)
+// K1-K4: the tiled kernel (see the note at the top of this file)
 // ---------------------------------------------------------------------------
 
 namespace tiled {
@@ -259,6 +271,24 @@ constexpr int kBounds = 6;                // clo, chi, dlo, dhi, mlo, mhi
 // 80 registers a thread; the 64 sums of KPT = 4 need 2 (128 registers).
 __host__ __device__ constexpr int min_blocks(int kpt) {
   return kpt >= 4 ? 2 : 3;
+}
+
+// Stage 2's interpolation form, tile_kernel's kForm: K1/K2 interpolate
+// linearly, K3/K4 take the two-hot contraction's nonzero terms. The values
+// are those of the launch's `form` argument.
+enum { kLinear = 0, kTwoHot = 1 };
+
+template <int kForm>
+__device__ __forceinline__ float sample_rn(const float* row, float y,
+                                           float ylast) {
+  return kForm == kTwoHot ? bp::twohot_rn(row, y, ylast)
+                          : bp::interp_rn(row, y, ylast);
+}
+
+template <int kForm>
+__device__ __forceinline__ float sample_inside(const float* row, float y) {
+  return kForm == kTwoHot ? bp::twohot_inside(row, y)
+                          : bp::interp_inside(row, y);
 }
 
 // Window descriptor of one view: columns [c_lo, c_lo + nc), rows
@@ -510,23 +540,14 @@ __device__ __forceinline__ void stage1_lines(const float* src, int cstride,
   }
 }
 
-// bp::interp_rn of a sample known to lie on the detector (floor(y) in
-// [0, nh-2]): the same bits without the range check.
-__device__ __forceinline__ float interp_inside(const float* row, float y) {
-  const float y0 = floorf(y);
-  const int iy = (int)y0;
-  const float dy = y - y0;
-  return __fmaf_rn(row[iy], 1.0f - dy, __fmul_rn(row[iy + 1], dy));
-}
-
 // Stage 2 for the warp's 8 lines from their buffers: y = a + b*k over the
 // lane's direct planes and (nh-1) - y for their mirrors, in view order.
 // kInside: every plane of the chunk is full and every sample on the
 // detector, so neither the k bounds nor the range are checked. An invalid
-// line has y = NaN (checked path only): interp_rn gives 0 and the sums,
+// line has y = NaN (checked path only): sample_rn gives 0 and the sums,
 // never -0, keep their bits. No branch on the line, so the 8 lines' loads
 // can overlap.
-template <int KPT, bool kInside>
+template <int KPT, bool kInside, int kForm>
 __device__ __forceinline__ void stage2_lines(float (&acc_lo)[kTj][KPT],
                                              float (&acc_hi)[kTj][KPT],
                                              const float* par,
@@ -547,22 +568,23 @@ __device__ __forceinline__ void stage2_lines(float (&acc_lo)[kTj][KPT],
       const float y = __fadd_rn(a, __fmul_rn(bk, (float)k));
       if (kInside) {
         acc_lo[l][r] = bp::accumulate_rn(acc_lo[l][r],
-                                         interp_inside(row_d, y), w);
+                                         sample_inside<kForm>(row_d, y), w);
         acc_hi[l][r] = bp::accumulate_rn(
-            acc_hi[l][r], interp_inside(row_m, __fsub_rn(ytop, y)), w);
+            acc_hi[l][r], sample_inside<kForm>(row_m, __fsub_rn(ytop, y)),
+            w);
       } else if (k < kd1) {
         acc_lo[l][r] = bp::accumulate_rn(
-            acc_lo[l][r], bp::interp_rn(row_d, y, ylast), w);
+            acc_lo[l][r], sample_rn<kForm>(row_d, y, ylast), w);
         if (k < kh)
           acc_hi[l][r] = bp::accumulate_rn(
-              acc_hi[l][r], bp::interp_rn(row_m, __fsub_rn(ytop, y), ylast),
-              w);
+              acc_hi[l][r],
+              sample_rn<kForm>(row_m, __fsub_rn(ytop, y), ylast), w);
       }
     }
   }
 }
 
-template <int KPT>
+template <int KPT, int kForm>
 __global__ void __launch_bounds__(kThreads, min_blocks(KPT))
 tile_kernel(Args A) {
   extern __shared__ float smem[];
@@ -636,12 +658,13 @@ tile_kernel(Args A) {
       // stage 2
       const float* par = S.par + (size_t)ps * 4;
       if (full && S.inside[(s % kParSlots) * kWarps + warp])
-        stage2_lines<KPT, true>(acc_lo, acc_hi, par, S.lines, A.win_rows, d0,
-                                nd, m0, nm, k0, kd1, kh, ylast, ytop, lane);
+        stage2_lines<KPT, true, kForm>(acc_lo, acc_hi, par, S.lines,
+                                       A.win_rows, d0, nd, m0, nm, k0, kd1,
+                                       kh, ylast, ytop, lane);
       else
-        stage2_lines<KPT, false>(acc_lo, acc_hi, par, S.lines, A.win_rows,
-                                 d0, nd, m0, nm, k0, kd1, kh, ylast, ytop,
-                                 lane);
+        stage2_lines<KPT, false, kForm>(acc_lo, acc_hi, par, S.lines,
+                                        A.win_rows, d0, nd, m0, nm, k0, kd1,
+                                        kh, ylast, ytop, lane);
     } else {
       // too many rows for the buffers: line by line, a full-height
       // sub-line in the warp's buffer, its rows read from global memory
@@ -664,11 +687,11 @@ tile_kernel(Args A) {
           if (k < kd1) {
             const float y = __fadd_rn(a, __fmul_rn(bk, (float)k));
             acc_lo[l][r] = bp::accumulate_rn(
-                acc_lo[l][r], bp::interp_rn(row, y, ylast), w);
+                acc_lo[l][r], sample_rn<kForm>(row, y, ylast), w);
             if (k < kh)
               acc_hi[l][r] = bp::accumulate_rn(
                   acc_hi[l][r],
-                  bp::interp_rn(row, __fsub_rn(ytop, y), ylast), w);
+                  sample_rn<kForm>(row, __fsub_rn(ytop, y), ylast), w);
           }
         }
         __syncwarp();
@@ -691,13 +714,14 @@ tile_kernel(Args A) {
   }
 }
 
-// Lets tile_kernel<KPT> take `bytes` of dynamic shared memory. A refusal
-// (more than the card has) is returned and cleared, so that it does not
-// stay behind as the last error of a later launch.
-template <int KPT>
+// Lets tile_kernel<KPT, kForm> take `bytes` of dynamic shared memory. A
+// refusal (more than the card has) is returned and cleared, so that it
+// does not stay behind as the last error of a later launch.
+template <int KPT, int kForm>
 int set_smem(int bytes) {
   const cudaError_t e = cudaFuncSetAttribute(
-      tile_kernel<KPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      tile_kernel<KPT, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (e != cudaSuccess) cudaGetLastError();
   return (int)e;
 }
@@ -722,34 +746,45 @@ const char* bp_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1/K2: the tiled kernel's shared memory per block for a detector height
-// and window slots of win_rows rows.
+// K1-K4: the tiled kernel's shared memory per block for a detector height
+// and window slots of win_rows rows (either form).
 size_t bp_tile_smem_bytes(int nh, int win_rows) {
   return tiled::smem_bytes(nh, win_rows);
 }
 
 // Blocks of the tiled kernel an SM holds at this plan, its registers per
-// thread and its local (spill) bytes per thread; returns a CUDA error.
-int bp_tile_occupancy(int kpt, int nh, int win_rows, int* blocks, int* regs,
-                      int* local_bytes) {
+// thread and its local (spill) bytes per thread, for the instance of kpt
+// and form (0 linear, 1 two-hot); returns a CUDA error.
+int bp_tile_occupancy(int kpt, int form, int nh, int win_rows, int* blocks,
+                      int* regs, int* local_bytes) {
   const int smem = (int)tiled::smem_bytes(nh, win_rows);
   cudaFuncAttributes fa;
   cudaError_t e;
-#define BP_OCCUPANCY(K)                                                    \
-  e = (cudaError_t)tiled::set_smem<K>(smem);                               \
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, tiled::tile_kernel<K>); \
+#define BP_OCCUPANCY(K, F)                                                 \
+  e = (cudaError_t)tiled::set_smem<K, F>(smem);                            \
+  if (e == cudaSuccess)                                                    \
+    e = cudaFuncGetAttributes(&fa, tiled::tile_kernel<K, F>);              \
   if (e == cudaSuccess)                                                    \
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                     \
-        blocks, tiled::tile_kernel<K>, kThreads, smem)
+        blocks, tiled::tile_kernel<K, F>, kThreads, smem)
+#define BP_OCCUPANCY_FORM(K)                                               \
+  if (form == tiled::kLinear) {                                            \
+    BP_OCCUPANCY(K, tiled::kLinear);                                       \
+  } else if (form == tiled::kTwoHot) {                                     \
+    BP_OCCUPANCY(K, tiled::kTwoHot);                                       \
+  } else {                                                                 \
+    return (int)cudaErrorInvalidValue;                                     \
+  }
   if (kpt == 1) {
-    BP_OCCUPANCY(1);
+    BP_OCCUPANCY_FORM(1)
   } else if (kpt == 2) {
-    BP_OCCUPANCY(2);
+    BP_OCCUPANCY_FORM(2)
   } else if (kpt == 4) {
-    BP_OCCUPANCY(4);
+    BP_OCCUPANCY_FORM(4)
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef BP_OCCUPANCY_FORM
 #undef BP_OCCUPANCY
   if (e != cudaSuccess) return (int)e;
   *regs = fa.numRegs;
@@ -757,17 +792,19 @@ int bp_tile_occupancy(int kpt, int nh, int win_rows, int* blocks, int* regs,
   return 0;
 }
 
-// K1/K2: launch the tiled kernel on `stream` with k chunks of 32*kpt planes
-// (kpt 1, 2 or 4) and window slots of win_rows rows (a multiple of 4); the
-// grid and the shared memory follow from them.
+// K1-K4: launch the tiled kernel on `stream` with k chunks of 32*kpt planes
+// (kpt 1, 2 or 4), window slots of win_rows rows (a multiple of 4) and
+// stage 2 in `form` (0 linear: K1/K2; 1 two-hot: K3/K4); the grid and the
+// shared memory follow from them.
 // Returns cudaGetLastError() after the launch (0 on success), or the error
 // of a block that asks more shared memory than the card has. Does not
 // synchronise and allocates nothing.
 int bp_tile_launch(const float* img_t, const float* mat, float* out,
                    int n_proj, int nw, int nh, int ni, int nj, int nz,
-                   int kpt, int win_rows, void* stream) {
+                   int kpt, int win_rows, int form, void* stream) {
   if (n_proj < 0 || nw < 2 || nh < 2 || ni < 1 || nj < 1 || nz < 1 ||
-      (kpt != 1 && kpt != 2 && kpt != 4) || win_rows < 4 || win_rows % 4)
+      (kpt != 1 && kpt != 2 && kpt != 4) || win_rows < 4 || win_rows % 4 ||
+      (form != tiled::kLinear && form != tiled::kTwoHot))
     return (int)cudaErrorInvalidValue;
   const int khp = nz - nz / 2;
   const long long n_chunks = (khp + kpt * kWarp - 1) / (kpt * kWarp);
@@ -781,18 +818,25 @@ int bp_tile_launch(const float* img_t, const float* mat, float* out,
   const int smem = (int)tiled::smem_bytes(nh, win_rows);
   const dim3 grid((unsigned)(n_ti * n_tj), (unsigned)n_chunks);
   const cudaStream_t st = (cudaStream_t)stream;
-#define BP_TILE_LAUNCH(K)                                                  \
+#define BP_TILE_LAUNCH(K, F)                                               \
   {                                                                        \
-    const cudaError_t e = (cudaError_t)tiled::set_smem<K>(smem);           \
+    const cudaError_t e = (cudaError_t)tiled::set_smem<K, F>(smem);        \
     if (e != cudaSuccess) return (int)e;                                   \
-    tiled::tile_kernel<K><<<grid, kThreads, smem, st>>>(args);             \
+    tiled::tile_kernel<K, F><<<grid, kThreads, smem, st>>>(args);          \
   }
-  if (kpt == 1)
-    BP_TILE_LAUNCH(1)
-  else if (kpt == 2)
-    BP_TILE_LAUNCH(2)
-  else
-    BP_TILE_LAUNCH(4)
+#define BP_TILE_LAUNCH_FORM(K)                                             \
+  if (form == tiled::kLinear)                                              \
+    BP_TILE_LAUNCH(K, tiled::kLinear)                                      \
+  else                                                                     \
+    BP_TILE_LAUNCH(K, tiled::kTwoHot)
+  if (kpt == 1) {
+    BP_TILE_LAUNCH_FORM(1)
+  } else if (kpt == 2) {
+    BP_TILE_LAUNCH_FORM(2)
+  } else {
+    BP_TILE_LAUNCH_FORM(4)
+  }
+#undef BP_TILE_LAUNCH_FORM
 #undef BP_TILE_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -80,8 +80,8 @@ def backproject_onehot(img_t, mat, vol_shape_xyz, *, nb: int = 0,
                        device=None):
     """The one-hot interpolation kernel (K3, or with ``proj_loop`` and an
     nb-divisible projection count the fused K4); the arguments are those
-    of :func:`backproject_subline`, plus ``k_chunk``, the k tile of the
-    stage-2 contraction."""
+    of :func:`backproject_subline`, plus ``k_chunk``, the reference's k
+    tile of the stage-2 contraction, which changes no bit."""
     _on_device(img_t, mat, device)
     if fused_batch_ok(img_t.shape[0], nb, proj_loop):
         return _run_padded(backproject_onehot_fused, img_t, mat,

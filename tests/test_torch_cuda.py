@@ -30,6 +30,15 @@ pytestmark = pytest.mark.cuda
 BAR = 1e-5
 SWEEP = [(16, 24, 6), (16, 16, 4), (13, 17, 5), (8, 32, 3), (20, 12, 7),
          (15, 20, 6)]
+ONEHOT_PLAIN_BAR = 4e-8     # K3/K4 against their plain version
+ONEHOT_K1_BAR = 1e-6        # tests/test_kernels.py, K3 against K1
+# (nz, detector, views, lines) where the tiled kernel's two-hot form runs
+# each path of its stage 2 (tests/test_torch_onehot_tiles.py checks it on
+# the CPU): a deep column (full k chunks, every sample on the detector:
+# no checks), a magnified one (nh = 2 nz, as P4: shorter k chunks, the
+# columns from global memory) and a 900-row detector on 100 planes
+# (windows taller than their slot: line by line at full height)
+TWO_HOT_PATHS = [(1000, 512, 4, 16), (128, 256, 4, 16), (100, 900, 4, 16)]
 
 
 @pytest.fixture
@@ -158,8 +167,10 @@ def test_onehot_kernels_match_plain_and_oracle(cuda, n, det, nproj, block,
                          block, k_chunk=k_chunk, nb=nproj)
     _check(k3, plain, ref, n % 2, "K3")
     _check(k4, plain, ref, n % 2, "K4")
+    assert rel_rmse(_cpu(k3), plain) < ONEHOT_PLAIN_BAR
+    assert torch.equal(k3, k4)
     k1 = ks.backproject_subline_kernel(img_t, mats, shape)
-    assert rel_rmse(_cpu(k3), _cpu(k1)) < 1e-6
+    assert rel_rmse(_cpu(k3), _cpu(k1)) < ONEHOT_K1_BAR
     assert ko.LAUNCHES == {"backproject_onehot_kernel": 1,
                            "backproject_onehot_fused": 1}
 
@@ -214,6 +225,26 @@ def test_onehot_and_banded_deep_columns_match_plain(cuda, nz, det, nproj):
                kb.backproject_banded_fused(img_b, mats, band, shape,
                                            nb=group, **kw))
         assert rel_rmse(_cpu(out), plain) < BAR
+
+
+@pytest.mark.parametrize("nz,det,nproj,lines", TWO_HOT_PATHS)
+def test_two_hot_form_on_every_stage2_path(cuda, nz, det, nproj, lines):
+    """K3/K4 through the check-free, the checked and the line-by-line
+    stage 2: within 4e-8 of their plain version, 1e-6 of K1, and K4 (at
+    every nb) bit for bit K3."""
+    img_t, mats, shape = _case(nz, det, nproj, cuda, seed=6, lines=lines)
+    plain = _cpu(ko.backproject_onehot_plain(img_t, mats, shape))
+    ref = _cpu(backproject_ref(img_t, mats, shape))
+    k3 = ko.backproject_onehot_kernel(img_t, mats, shape)
+    _check(k3, plain, ref, nz % 2, "K3")
+    assert rel_rmse(_cpu(k3), plain) < ONEHOT_PLAIN_BAR
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    assert rel_rmse(_cpu(k3), _cpu(k1)) < ONEHOT_K1_BAR
+    for nb in (1, 2, 4):
+        assert torch.equal(
+            ko.backproject_onehot_fused(img_t, mats, shape, nb=nb), k3), nb
+    assert ko.LAUNCHES == {"backproject_onehot_kernel": 1,
+                           "backproject_onehot_fused": 3}
 
 
 def test_k_chunk_and_bands_change_no_bit(cuda):
@@ -333,7 +364,8 @@ def test_k2_at_every_nb_gives_k1_bit_for_bit(cuda):
 def test_tiled_kernel_layout_and_occupancy(cuda):
     """The kernel's shared-memory layout equals the mirror the CPU tests
     plan with, and the card holds at least 2 blocks per SM at every plan
-    those tests check; a detector too tall for one block is refused."""
+    those tests check, in both forms (K1/K2 linear, K3/K4 two-hot); a
+    detector too tall for one block is refused."""
     import ctypes
     from test_torch_subline_tiles import _plan_cases, smem_bytes
     lib = ks._lib()
@@ -341,11 +373,13 @@ def test_tiled_kernel_layout_and_occupancy(cuda):
         plan = ks.launch_plan(shape, nh)
         assert lib.bp_tile_smem_bytes(nh, plan.win_rows) \
             == smem_bytes(nh, plan.win_rows), (shape, nh)
-        blocks, regs, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        assert lib.bp_tile_occupancy(
-            plan.kpt, nh, plan.win_rows, ctypes.byref(blocks),
-            ctypes.byref(regs), ctypes.byref(local)) == 0
-        assert blocks.value >= 2, (shape, nh)
+        for form in (ks.LINEAR, ks.TWO_HOT):
+            blocks, regs, local = (ctypes.c_int(), ctypes.c_int(),
+                                   ctypes.c_int())
+            assert lib.bp_tile_occupancy(
+                plan.kpt, form, nh, plan.win_rows, ctypes.byref(blocks),
+                ctypes.byref(regs), ctypes.byref(local)) == 0
+            assert blocks.value >= 2, (shape, nh, form)
     img_t = torch.zeros((1, 2, 8192), device=cuda)
     mats = torch.zeros((1, 3, 4), device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
