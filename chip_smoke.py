@@ -5,12 +5,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
 
-It builds the CUDA kernels (K1-K6) from the source in the checkout,
-prints the tiled kernel's launch plan with the card's occupancy,
-registers and spills for both its forms (linear: K1/K2; two-hot: K3/K4),
+It builds the CUDA kernels (K1-K6, all instances of one tiled kernel)
+from the source in the checkout, prints the tiled kernel's launch plan
+with the card's occupancy, registers and spills for each instance
+(linear: K1/K2; two-hot: K3/K4; linear from the band layout: K5/K6),
 holds each kernel against its plain PyTorch version and the oracle at
-the sweep shapes and at the main path's shape (K1, K2, K5 and K6 against
-each other, and K3 against K4, bit for bit), drives the FDK main path at
+the sweep shapes, the deep columns (past nz = 2048) and the main path's
+shape (K1, K2, K5 and K6 against each other, and K3 against K4, bit for
+bit), and K5/K6 with bands that drop lines against their plain version,
+drives the FDK main path at
 the paper's P5 size (512^3 voxels, 512 views, 512x512 detector) through
 ``repro_torch.reconstruct`` with each CUDA variant (``subline_pl``,
 ``onehot_pl``, ``banded_pl``, each at nb=8 and nb=1), checks that each
@@ -41,14 +44,15 @@ BAR = 1e-5                        # tests/test_kernels.py BAR
 SWEEP = [(16, 24, 6), (16, 16, 4), (13, 17, 5), (8, 32, 3), (20, 12, 7),
          (15, 20, 6)]             # + an odd-nz case the fused kernel takes
 # Deep 16x16-line columns (nz, detector, views): every k-per-lane
-# instance of the kernel (nz up to 2048) and, at nh=1024, the staging
-# depth capped by shared memory.
+# instance of the kernel and several k chunks, at detectors up to 1024
+# rows.
 DEPTHS = [(70, 64, 4), (129, 96, 5), (200, 128, 4), (500, 256, 3),
           (1000, 512, 4), (1301, 1024, 8)]
 BLOCKS = [(1, 8), (2, 8), (4, 8), (4, 16)]
-# K1/K2 only, on 16 x 16 lines: past the banded kernel's nz=2048, and
-# detectors so fine that the windows overflow their columns (2.4 pixels a
-# voxel) and their rows too (7.2: both global-read paths)
+# On 16 x 16 lines, through _deep_tiled: past the 2048 planes that the
+# kernel K1-K6 ran on before the tiled one took, and detectors so fine that
+# the windows overflow their columns (2.4 pixels a voxel) and their rows
+# too (7.2: both global-read paths)
 DEEP_SUBLINE = [(2049, 1024, 4), (2600, 1024, 4), (300, 900, 4),
                 (100, 900, 4)]
 SUBLINE_PLAIN_BAR = 1e-7          # K1/K2 against their plain version
@@ -58,6 +62,7 @@ NBS = [2, 3, 8]
 K_CHUNKS = [4, 8, 128]            # one-hot k tiles (4 divides no khp here)
 BWS = [8, 16, 32]                 # banded starting band widths
 BANDED = [(16, 48, 4, 16), (13, 17, 5, 8)]   # tests/test_kernels.py cases
+SHIFT_BW = 8                      # bands of the line-dropping (shifted) case
 ONEHOT_K1_BAR = 1e-6              # tests/test_kernels.py, K3 against K1
 FLOPS_PER_UPDATE = 8.0            # the repo's ct-backproject cost model
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, non-tensor FP32
@@ -80,13 +85,15 @@ KERNELS = {
         "K4 backproject_onehot_fused (tile_kernel, two-hot form)",
         "src/repro/kernels/backproject_onehot.py:175"),
     "backproject_banded_kernel": (
-        "K5 backproject_banded_kernel (subline_kernel)",
+        "K5 backproject_banded_kernel (tile_kernel, linear form, banded)",
         "src/repro/kernels/backproject_banded.py:148"),
     "backproject_banded_fused": (
-        "K6 backproject_banded_fused (subline_kernel)",
+        "K6 backproject_banded_fused (tile_kernel, linear form, banded)",
         "src/repro/kernels/backproject_banded.py:186"),
 }
 SOURCES = ["backproject_subline"]
+# the tiled kernel's instances: (name, form, banded)
+INSTANCES = (("linear", 0, 0), ("two-hot", 1, 0), ("banded", 0, 1))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -197,9 +204,10 @@ def phase_build() -> None:
                 print(f"[build]   {line.strip()}")
 
 
-def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> int:
+def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> tuple:
     """K1-K6 against their plain versions and the oracle on one geometry;
-    returns how many banded cases the band search widened."""
+    returns how many banded cases the band search widened and how many
+    shifted-band cases dropped lines."""
     import numpy as np
     import torch
     from repro_torch.core.backproject import transpose_projections
@@ -308,7 +316,7 @@ def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> int:
 
     # K5/K6: the banded kernel, on the block-padded volume; the device band
     # schedule equals the same function run on the CPU
-    widened = 0
+    widened = dropped = 0
     for block in blocks:
         bi, bj = block
         pshape = (-(-ni // bi) * bi, -(-nj // bj) * bj, nz)
@@ -352,11 +360,49 @@ def _sweep_case(geom, seed, errs, blocks, k_chunks, bws) -> int:
             check("banded", f"ops block={block} nb={nb}",
                   "backproject_banded_kernel" if npj % nb
                   else "backproject_banded_fused", out, sub_plain)
+        dropped += _shifted_bands(img_t, mats, pshape, block, nw, npj, errs,
+                                  lines["banded"])
     for family, results in lines.items():
         print(f"[kernels] {family}: volume {shape}, detector "
               f"{geom.nw}x{geom.nh}, {npj} views: {len(results)} cases "
               f"pass; worst: {max(results)[1]}")
-    return widened
+    return widened, dropped
+
+
+def _shifted_bands(img_t, mats, pshape, block, nw, npj, errs, lines) -> int:
+    """K5, and K6 at nb = every view, on bands of SHIFT_BW columns moved one
+    place right (no band search): the lines left of their band are dropped,
+    and each kernel must agree with its plain version within BAR. Returns
+    how many of the two dropped lines (differ from K1)."""
+    import torch
+    ks, _, kb = launch_modules()
+    img_b, n_bands = kb.band_layout(img_t, SHIFT_BW)
+    k1 = ks.backproject_subline_kernel(img_t, mats, pshape)
+    dropped = 0
+    for group in (1, npj):
+        band, _ = kb.tile_bands(mats, *pshape[:2], *block, SHIFT_BW,
+                                n_bands, nw, group=group)
+        band = torch.clamp(band + 1, max=n_bands - 1)
+        kw = dict(block=block, bw=SHIFT_BW, nw=nw)
+        plain = kb.backproject_banded_plain(img_b, mats, band, pshape,
+                                            group=group, **kw)
+        if group == 1:
+            kernel, label = "backproject_banded_kernel", "K5"
+            out = kb.backproject_banded_kernel(img_b, mats, band, pshape, **kw)
+        else:
+            kernel, label = "backproject_banded_fused", f"K6 nb={group}"
+            out = kb.backproject_banded_fused(img_b, mats, band, pshape,
+                                              nb=group, **kw)
+        torch.cuda.synchronize()
+        r = rel_rmse(out, plain)
+        errs[kernel] = max(errs[kernel], float((out - plain).abs().max()))
+        differs = not torch.equal(out, k1)
+        dropped += differs
+        msg = (f"{label} block={block} shifted bands (bw={SHIFT_BW}) vs plain "
+               f"{r:.2e}, lines dropped: {differs}")
+        require(r < BAR, msg)
+        lines.append((r, msg))
+    return dropped
 
 
 def phase_kernels_sweep(seed: int) -> dict:
@@ -371,20 +417,26 @@ def phase_kernels_sweep(seed: int) -> dict:
                                                      n_proj=npj),
                                    nx=16, ny=16), BLOCKS, [128], [32])
               for nz, det, npj in DEPTHS]
-    widened = 0
+    widened = dropped = 0
     for i, case in enumerate(cases):
-        widened += _sweep_case(case[0], seed + i, errs, *case[1:])
-    print(f"[kernels] the band search widened bw in {widened} banded cases")
+        w, d = _sweep_case(case[0], seed + i, errs, *case[1:])
+        widened += w
+        dropped += d
+    print(f"[kernels] the band search widened bw in {widened} banded cases; "
+          f"the shifted bands dropped lines in {dropped} cases")
     require(widened > 0, "no banded case ran the band-width doubling loop")
+    require(dropped > 0, "no shifted-band case dropped a line")
     _deep_tiled(seed + len(cases), errs)
     return errs
 
 
 def _deep_tiled(seed, errs) -> None:
-    """The tiled kernel at DEEP_SUBLINE, in both forms: K1 and K3 against
-    their plain versions and the oracle, K3 within 1e-6 of K1, and K2 (K4)
-    at every nb bitwise equal to K1 (K3). The 900-row detectors run the
-    global-read paths, the deep columns the check-free stage 2."""
+    """The tiled kernel at DEEP_SUBLINE, in every instance: K1 and K3
+    against their plain versions and the oracle, K3 within 1e-6 of K1, K2
+    (K4) at every nb bitwise equal to K1 (K3), and K5 and K6 (at every nb,
+    each under its own band schedule) bitwise equal to K1. The 900-row
+    detectors run the global-read paths, the deep columns the check-free
+    stage 2."""
     import dataclasses
     import numpy as np
     import torch
@@ -392,7 +444,7 @@ def _deep_tiled(seed, errs) -> None:
     from repro_torch.core.geometry import (projection_matrices,
                                            standard_geometry)
     from repro_torch.kernels.ref import backproject_ref
-    ks, ko, _ = launch_modules()
+    ks, ko, kb = launch_modules()
     for nz, det, npj in DEEP_SUBLINE:
         geom = dataclasses.replace(standard_geometry(n=nz, n_det=det,
                                                      n_proj=npj), nx=16,
@@ -433,14 +485,29 @@ def _deep_tiled(seed, errs) -> None:
             k4 = ko.backproject_onehot_fused(img_t, mats, shape, nb=nb)
             require(torch.equal(k4, k3), f"K4 nb={nb} at nz={nz} is not "
                     f"bitwise equal to K3")
-        print(f"[kernels] {msg}; K2 = K1 and K4 = K3 bit for bit")
+            img_b, band, bw = kb.band_schedule(img_t, mats, shape,
+                                               block=(4, 8), bw=32, group=nb)
+            kw = dict(block=(4, 8), bw=bw, nw=det)
+            if nb == 1:
+                label = "K5"
+                out = kb.backproject_banded_kernel(img_b, mats, band, shape,
+                                                   **kw)
+            else:
+                label = f"K6 nb={nb}"
+                out = kb.backproject_banded_fused(img_b, mats, band, shape,
+                                                  nb=nb, **kw)
+            require(torch.equal(out, k1), f"{label} (bw={bw}) at nz={nz} is "
+                    f"not bitwise equal to K1")
+        print(f"[kernels] {msg}; K2 = K1, K4 = K3 and K5 = K6 = K1 bit for "
+              f"bit")
 
 
 def phase_plan(shapes) -> None:
     """The tiled kernel's launch plan at each (volume, nh), with what the
-    card says of it for each form (linear: K1/K2; two-hot: K3/K4): blocks
-    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
-    local (spill) bytes per thread. K1-K4 launch the same plan."""
+    card says of it for each instance (linear: K1/K2; two-hot: K3/K4;
+    banded: K5/K6): blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+    (spill) bytes per thread. K1-K6 launch the same plan."""
     import ctypes
     ks = launch_modules()[0]
     lib = ks._lib()
@@ -448,17 +515,17 @@ def phase_plan(shapes) -> None:
         plan = ks.launch_plan(shape, nh)
         smem = lib.bp_tile_smem_bytes(nh, plan.win_rows)
         forms = []
-        for form, name in ((ks.LINEAR, "linear"), (ks.TWO_HOT, "two-hot")):
+        for name, form, banded in INSTANCES:
             blocks, regs, local = (ctypes.c_int(), ctypes.c_int(),
                                    ctypes.c_int())
-            err = lib.bp_tile_occupancy(plan.kpt, form, nh, plan.win_rows,
-                                        ctypes.byref(blocks),
+            err = lib.bp_tile_occupancy(plan.kpt, form, banded, nh,
+                                        plan.win_rows, ctypes.byref(blocks),
                                         ctypes.byref(regs),
                                         ctypes.byref(local))
             require(err == 0, f"bp_tile_occupancy failed: CUDA error {err}")
             require(blocks.value >= 2, f"fewer than 2 blocks per SM at "
-                    f"{shape} in the {name} form")
-            forms.append(f"{name} form {blocks.value} blocks/SM, "
+                    f"{shape} in the {name} instance")
+            forms.append(f"{name} {blocks.value} blocks/SM, "
                          f"{regs.value} registers, {local.value} B local "
                          f"per thread")
         print(f"[plan] volume {shape} nh={nh}: tile {ks.TILE}, k chunk "
@@ -647,7 +714,8 @@ def phase_p5(seed: int, errs: dict) -> dict:
               f"{float(plain.abs().max()):.3e})")
         require(r < BAR, f"{name} disagrees with its plain version at P5")
         outs[name] = out
-    # the tiled K1/K2 against the old template's K5/K6, bit for bit
+    # K1 against K5 (the same launch reading the bands) and K2 against K6,
+    # bit for bit
     for a, b in (("backproject_subline_kernel", "backproject_banded_kernel"),
                  ("backproject_subline_fused", "backproject_banded_fused"),
                  ("backproject_subline_kernel", "backproject_subline_fused")):

@@ -17,13 +17,14 @@ call (parent, change, change, parent); it uses only the kernel wrappers
 and ``reconstruct``, which every tree of the port has. Each time is the
 median of 3 CUDA-event timings after one warm-up. The projections are
 uniform random numbers from ``--seed``: the kernels' work does not depend
-on them. ``--plans`` also times K1 of this checkout under each launch plan
-of ``PLANS`` and requires each to give the default plan's volume bit for
-bit. ``--volumes DIR`` saves this run's K3 volume at each problem as
-``DIR/k3-<problem>-<tag>.pt`` and compares it with every other tag's
-saved there: bit for bit, and by rel-RMSE and max abs difference, so a
-run of the change after one of the parent says whether the two trees'
-K3 give the same volume. Every line starts with ``--tag``; the first
+on them. ``--plans`` also times K1 under each launch plan of ``PLANS``
+and requires each to give the default plan's volume bit for bit; it
+needs a tree whose ``bp_tile_occupancy`` takes the instance as kpt, form
+and source, as this checkout's does. ``--volumes DIR`` saves this run's
+K3 volume at each problem as ``DIR/k3-<problem>-<tag>.pt`` and compares
+it with every other tag's saved there: bit for bit, and by rel-RMSE and
+max abs difference, so a run of the change after one of the parent says
+whether the two trees' K3 give the same volume. Every line starts with ``--tag``; the first
 names the card and its power limit.
 """
 
@@ -195,7 +196,7 @@ def time_plans(tag, label, ks, img_t, mats, shape, nh, k1) -> None:
                 win_rows=win_rows)
             blocks, regs, local = (ctypes.c_int(), ctypes.c_int(),
                                    ctypes.c_int())
-            err = lib.bp_tile_occupancy(kpt, ks.LINEAR, nh, win_rows,
+            err = lib.bp_tile_occupancy(kpt, ks.LINEAR, 0, nh, win_rows,
                                         ctypes.byref(blocks),
                                         ctypes.byref(regs),
                                         ctypes.byref(local))

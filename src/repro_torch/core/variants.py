@@ -23,7 +23,7 @@ the hand-written CUDA kernel):
                      contraction (its nonzero terms), the two-hot form
                      of kernels/csrc/backproject_subline.cu
     banded_pl        CUDA: subline_pl reading each tile's band of
-                     detector columns, subline_kernel of
+                     detector columns, the banded instance of
                      kernels/csrc/backproject_subline.cu
 
 The other variants of the JAX package wait in ROADMAP.md.

@@ -16,17 +16,23 @@ band. Both helpers run on the tensors' own device; the band schedule is
 float64 there, in the reference's order of operations, and gives the
 reference's band array bit for bit.
 
-The kernel is ``subline_kernel`` of ``csrc/backproject_subline.cu``, the
-sub-line kernel K1/K2 ran before they were tiled: stage 1
-reading column ``rel = floor(x) - band*bw`` of its band and dropping a
-line whose ``rel`` misses ``[0, 2*bw-2]``. K6 shares one band per group
-of nb projections. What bounds it on an H100 is K1's bound, the same
-function's 8 FLOP per voxel-view update (operations, 8.2 ms at P5);
-the band layout adds 2x the projections' bytes of device traffic per
-call. On the TPU the band cut the projection stream through VMEM; here
-each line reads its two columns through L2 as K1 does, so the design
-keeps the reference's semantics and leaves a shared-memory band tile to
-a later change.
+The kernel is ``tile_kernel`` of ``csrc/backproject_subline.cu`` in K1's
+linear form, with the band layout as its column source: under K1's
+launch plan (``backproject_subline.launch_plan``), a line of band tile
+(i/BI, j/BJ) reads band ``b = band[s // group, i // BI, j // BJ]`` and is
+dropped for view ``s`` where ``rel = floor(x) - b*bw`` misses
+``[0, 2*bw-2]``; the tile's detector window is copied from the bands
+(column c from band c // bw), so one 8 x 8 kernel tile may span several
+band tiles. K6 is the same launch with one band per group of nb
+projections (``group = nb``): the kernel walks every view itself, one
+window ahead, whatever nb is. Where no line is dropped, which the band
+search guarantees, K5 and K6 give K1's volume bit for bit, at any nz.
+What bounds it on an H100 is K1's bound, the same function's 8 FLOP per
+voxel-view update (operations, 8.2 ms at P5); the band layout adds 2x
+the projections' bytes of device traffic per call. On the TPU the band
+cut the projection stream through VMEM; here each tile's window is in
+shared memory already, so the band decides which lines count and adds
+one band load per line and view.
 
 On a CPU tensor the kernel wrappers run :func:`backproject_banded_plain`;
 on a CUDA tensor they launch the kernel or raise.
@@ -60,33 +66,10 @@ def _lib():
     if _LIB is None:
         lib = ks._lib()    # the same library: backproject_subline.cu
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bp_subline_smem_bytes.argtypes = [ci, ci]
-        lib.bp_subline_smem_bytes.restype = ctypes.c_size_t
-        lib.bp_subline_max_khp.argtypes = []
-        lib.bp_subline_max_khp.restype = ci
-        lib.bp_banded_launch.argtypes = [vp] * 4 + [ci] * 12 + [vp]
-        lib.bp_banded_launch.restype = ci
+        lib.bp_tile_launch_banded.argtypes = [vp] * 4 + [ci] * 13 + [vp]
+        lib.bp_tile_launch_banded.restype = ci
         _LIB = lib
     return _LIB
-
-
-def check_depth(lib, nz: int) -> None:
-    """The kernel's depth limit: 32 planes a lane over the direct half."""
-    if nz - nz // 2 > lib.bp_subline_max_khp():
-        raise ValueError(f"nz={nz} exceeds the kernel's largest depth "
-                         f"{2 * lib.bp_subline_max_khp()}")
-
-
-def _max_stage(nh: int, nb: int) -> int:
-    """K6's staging depth for ``nb``: the deepest whose block fits. The
-    depth changes no result: each voxel's sum is taken in projection order
-    whatever the staging."""
-    lib = _lib()
-    stage = nb
-    while stage > 1 and \
-            lib.bp_subline_smem_bytes(nh, stage) > ks.SMEM_PER_BLOCK:
-        stage -= 1
-    return stage
 
 
 def band_layout(img_t: torch.Tensor, bw: int):
@@ -204,21 +187,21 @@ def _check_banded(img_b, mat, band, vol_shape_xyz, block, bw, nw, group):
     return shape
 
 
-def _launch(img_b, mat, band, shape, block, bw, nw, group, stage):
+def _launch(img_b, mat, band, shape, block, bw, nw, group):
+    """One launch of the tiled kernel's banded instance under K1's launch
+    plan; raises if the launch fails."""
     lib = _lib()
     ni, nj, nz = shape
     n_proj, n_bands, _, nh = img_b.shape
-    check_depth(lib, nz)
-    if lib.bp_subline_smem_bytes(nh, stage) > ks.SMEM_PER_BLOCK:
-        raise ValueError(f"nh={nh} needs more shared memory per block than "
-                         f"the card has, even at one staged projection")
+    plan = ks.launch_plan(shape, nh)
     out = torch.empty(shape, dtype=torch.float32, device=img_b.device)
     with torch.cuda.device(img_b.device):
         stream = torch.cuda.current_stream(img_b.device).cuda_stream
-        err = lib.bp_banded_launch(
+        err = lib.bp_tile_launch_banded(
             img_b.data_ptr(), mat.data_ptr(), band.data_ptr(),
-            out.data_ptr(), n_proj, nw, nh, ni, nj, nz, stage, bw, n_bands,
-            int(block[0]), int(block[1]), group, stream)
+            out.data_ptr(), n_proj, nw, nh, ni, nj, nz, plan.kpt,
+            plan.win_rows, bw, n_bands, int(block[0]), int(block[1]), group,
+            stream)
     if err != 0:
         raise ks.launch_error("backproject_banded", lib, err)
     return out
@@ -227,15 +210,15 @@ def _launch(img_b, mat, band, shape, block, bw, nw, group, stage):
 def backproject_banded_kernel(img_b: torch.Tensor, mat: torch.Tensor,
                               band: torch.Tensor, vol_shape_xyz, *,
                               block=(4, 8), bw: int, nw: int) -> torch.Tensor:
-    """K5: one band per (projection, tile), one staged projection per
-    step. ``img_b`` from :func:`band_layout`, ``band`` from
-    :func:`tile_bands` with ``group=1``; ``nw`` is the true detector
-    width. The volume must be whole (BI, BJ) tiles."""
+    """K5: one band per (projection, tile). ``img_b`` from
+    :func:`band_layout`, ``band`` from :func:`tile_bands` with
+    ``group=1``; ``nw`` is the true detector width. The volume must be
+    whole (BI, BJ) tiles; any nz."""
     shape = _check_banded(img_b, mat, band, vol_shape_xyz, block, bw, nw, 1)
     if img_b.device.type == "cpu":
         return backproject_banded_plain(img_b, mat, band, shape, block=block,
                                         bw=bw, nw=nw)
-    out = _launch(img_b, mat, band, shape, block, bw, nw, 1, 1)
+    out = _launch(img_b, mat, band, shape, block, bw, nw, 1)
     LAUNCHES["backproject_banded_kernel"] += 1
     return out
 
@@ -245,15 +228,14 @@ def backproject_banded_fused(img_b: torch.Tensor, mat: torch.Tensor,
                              block=(4, 8), bw: int, nw: int,
                              nb: int = 8) -> torch.Tensor:
     """K6: K5 with one band per group of ``nb`` projections (``band``
-    from :func:`tile_bands` with ``group=nb``), staging up to nb
-    projections per step. Requires ``n_proj % nb == 0``."""
+    from :func:`tile_bands` with ``group=nb``): the same launch, reading
+    each view's band from its group. Requires ``n_proj % nb == 0``."""
     nb = int(nb)
     shape = _check_banded(img_b, mat, band, vol_shape_xyz, block, bw, nw, nb)
     if img_b.device.type == "cpu":
         return backproject_banded_plain(img_b, mat, band, shape, block=block,
                                         bw=bw, nw=nw, group=nb)
-    out = _launch(img_b, mat, band, shape, block, bw, nw, nb,
-                  _max_stage(img_b.shape[3], nb))
+    out = _launch(img_b, mat, band, shape, block, bw, nw, nb)
     LAUNCHES["backproject_banded_fused"] += 1
     return out
 

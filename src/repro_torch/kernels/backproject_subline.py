@@ -7,7 +7,9 @@ kernel, ``tile_kernel`` in ``csrc/backproject_subline.cu``, serves both
 with the same launch (:func:`launch_plan`); K2 keeps ``nb`` for the
 reference's ``n_proj % nb == 0`` contract. The one-hot K3/K4
 (``backproject_onehot.py``) launch the same kernel in its two-hot form
-through :func:`launch_tile`.
+through :func:`launch_tile`, and the banded K5/K6
+(``backproject_banded.py``) its linear form reading the band layout,
+under the same plan.
 
 What bounds it on an H100. By the repo's cost model (8 floating-point
 operations per voxel-view update) the function is bound by operations: at
@@ -50,7 +52,7 @@ LAUNCHES: Dict[str, int] = {"backproject_subline_kernel": 0,
 #: Dynamic shared memory a block may use on an H100 (227 KB).
 SMEM_PER_BLOCK = 232448
 
-#: The voxel lines (i, j) one block of the tiled K1-K4 kernel owns
+#: The voxel lines (i, j) one block of the tiled K1-K6 kernel owns
 #: (``tiled::kTi``, ``tiled::kTj`` of the CUDA source).
 TILE = (8, 8)
 
@@ -84,7 +86,7 @@ def _lib():
         lib.bp_tile_launch.restype = ci
         lib.bp_tile_smem_bytes.argtypes = [ci, ci]
         lib.bp_tile_smem_bytes.restype = ctypes.c_size_t
-        lib.bp_tile_occupancy.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
+        lib.bp_tile_occupancy.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 3
         lib.bp_tile_occupancy.restype = ci
         lib.bp_cuda_error_string.argtypes = [ci]
         lib.bp_cuda_error_string.restype = ctypes.c_char_p
@@ -209,7 +211,7 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How the tiled K1-K4 kernel (tiles of TILE lines) is launched for
+    """How the tiled K1-K6 kernel (tiles of TILE lines) is launched for
     one call. The kernel lays out its shared memory from ``win_rows`` and
     the detector height (``bp_tile_smem_bytes``)."""
     kpt: int             # direct planes per lane of a block

@@ -1,8 +1,8 @@
-// Device helpers of the back-projection kernels in backproject_subline.cu
-// (the tiled K1-K4 and the banded K5/K6). The per-line scalars are
-// computed in the order of the plain PyTorch versions with round-to-nearest
-// intrinsics, so FMA contraction cannot move floor(x), floor(y) or the
-// validity masks across an edge relative to them.
+// Device helpers of the tiled back-projection kernel in
+// backproject_subline.cu (K1-K6). The per-line scalars are computed in the
+// order of the plain PyTorch versions with round-to-nearest intrinsics, so
+// FMA contraction cannot move floor(x), floor(y) or the validity masks
+// across an edge relative to them.
 
 #pragma once
 
@@ -10,15 +10,22 @@
 
 namespace bp {
 
-constexpr int kLines = 8;                 // voxel lines per block
 constexpr int kWarp = 32;
-constexpr int kThreads = kLines * kWarp;  // one warp per line
 
-// Floats of the staged matrices at the head of shared memory, rounded up
-// to a multiple of 4 so the buffers after them stay 16-byte aligned.
-__host__ __device__ inline int mat_floats(int stage) {
-  return (stage * 12 + 3) & ~3;
-}
+// n / d for a divisor d fixed at launch, by a multiply-high and a shift
+// (Granlund and Montgomery) instead of the some 25 instructions of an
+// integer division: exact for 0 <= n < 2^31 and 1 <= d < 2^31.
+struct FastDiv {
+  unsigned mul, shift;
+  FastDiv() = default;
+  explicit FastDiv(int d) : mul(1), shift(0) {
+    while ((1ull << shift) < (unsigned long long)d) ++shift;
+    mul = (unsigned)(((1ull << 32) * ((1ull << shift) - d)) / d + 1);
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((unsigned)n, mul) + (unsigned)n) >> shift);
+  }
+};
 
 // k-invariant scalars of one voxel line for one projection (O2). Returns
 // whether the line is valid (z > 0 and 0 <= floor(x) <= nw-2).
@@ -48,42 +55,17 @@ __device__ __forceinline__ void y_affine(const float* m, float fi, float fj,
   bk = __fmul_rn(m[6], f);
 }
 
-// Linear interpolation inside one sub-line at row coordinate y; 0 when
-// floor(y) falls outside [0, nh-2].
-__device__ __forceinline__ float interp(const float* row, float y,
-                                        float ylast) {
-  const float y0 = floorf(y);
-  if (!(y0 >= 0.0f && y0 <= ylast)) return 0.0f;
-  const int iy = (int)y0;
-  const float dy = y - y0;
-  return row[iy] * (1.0f - dy) + row[iy + 1] * dy;
-}
-
-// Stage 1 (Fig. 3a) for one warp: blend detector columns c0 and c0 + nh
-// (nh contiguous floats each, read coalesced) into the sub-line row.
-__device__ __forceinline__ void blend_columns(const float* __restrict__ c0,
-                                              float dx, int nh, int lane,
-                                              float* row) {
-  const float* c1 = c0 + nh;
-  const float wx = 1.0f - dx;
-#pragma unroll 4
-  for (int y = lane; y < nh; y += kWarp)
-    row[y] = __ldg(c0 + y) * wx + __ldg(c1 + y) * dx;
-}
-
-// The roundings that blend_columns, interp and the accumulation
-// `acc += interp(...) * w` get in the banded kernel, where nvcc contracts
-// each into one FMA fusing the first product (found on the card: nvcc
-// fused the other product of the same blend expression in the tiled
-// K1/K2's batched stage 1). Written out with intrinsics, so a kernel
-// built around them gives the banded kernel's bits wherever it is.
+// The roundings of the blend of two detector columns, written out with
+// intrinsics: nvcc may contract the same expression into an FMA
+// differently in two kernels or instances (found on the card), so every
+// instance that must give the same bits takes these.
 __device__ __forceinline__ float blend_rn(float v0, float v1, float dx) {
   return __fmaf_rn(v0, 1.0f - dx, __fmul_rn(v1, dx));
 }
 
 // Stage 2 of the tiled kernel at row coordinate y, in two forms that read
-// the same two rows under the same range rule. interp_rn is K1/K2's linear
-// interpolation. twohot_rn is K3/K4's two-hot contraction
+// the same two rows under the same range rule. interp_rn is the linear
+// interpolation (K1/K2, K5/K6). twohot_rn is K3/K4's two-hot contraction
 // sum_n A[n] * row[n] (A zero but for 1 - dy at iy and dy at iy + 1) with
 // its zero terms dropped: in the dense sum taken in row order, the first
 // nonzero term is fma(1 - dy, row[iy], 0), the second fma(dy, row[iy+1], v),

@@ -1,20 +1,23 @@
 // Sub-line cone-beam back-projection for Hopper (sm_90a): the paper's
-// Algorithm 1 (hoisting O2, O3 mirror, sub-line buffer O4, nb staging O5).
-// Replaces the six Pallas kernels of the JAX package:
+// Algorithm 1 (hoisting O2, O3 mirror, sub-line buffer O4), on tiles of
+// voxel lines whose detector windows are staged in shared memory.
+// Replaces the six Pallas kernels of the JAX package, each an instance of
+// tile_kernel:
 //   K1 backproject_subline_pallas (l.204), K2 backproject_subline_fused
-//      (l.240) of src/repro/kernels/backproject_subline.py: tile_kernel in
-//      its linear form;
+//      (l.240) of src/repro/kernels/backproject_subline.py: the linear
+//      form;
 //   K3 backproject_onehot_pallas (l.144), K4 backproject_onehot_fused
-//      (l.175) of src/repro/kernels/backproject_onehot.py: tile_kernel in
-//      its two-hot form;
-//   K5 _banded_call, K6 _banded_call_fused
-//      (src/repro/kernels/backproject_banded.py): subline_kernel<KPT>.
+//      (l.175) of src/repro/kernels/backproject_onehot.py: the two-hot
+//      form;
+//   K5 _banded_call (l.148), K6 _banded_call_fused (l.186) of
+//      src/repro/kernels/backproject_banded.py: the linear form reading
+//      the band layout.
 // ../backproject_subline.py, ../backproject_onehot.py and
 // ../backproject_banded.py wrap them.
 //
 // Inputs, all float32 and contiguous:
 //   img   (n_proj, nw, nh)              filtered projections, detector
-//                                       columns contiguous (K1/K2), or
+//                                       columns contiguous (K1-K4), or
 //         (n_proj, n_bands, 2*bw, nh)   the same in overlapping bands (K5/K6)
 //   mat   (n_proj, 3, 4)                index-space projection matrices
 //   band  (n_proj / group, ni/bi, nj/bj) int32 band of each (projection
@@ -22,7 +25,7 @@
 // Output:
 //   out   (ni, nj, nz)                  vol_t[i][j][k], written exactly once
 //
-// ---- K1-K4: tile_kernel -----------------------------------------------------
+// ---- tile_kernel ------------------------------------------------------------
 // What bounds it on an H100. By the repo's cost model (8 FLOP per
 // voxel-view update) the function is bound by operations: 8.2 ms at P5
 // against 0.32 ms of compulsory bytes. The kernel it replaced (one warp per
@@ -66,12 +69,12 @@
 //  * A window wider than kWinCols columns (oblique geometries, detectors
 //    finer than the voxels) is not copied: stage 1 reads the same rows of
 //    the two columns from global memory. A window taller than a slot runs
-//    line by line on a full-height sub-line, as the replaced kernel did;
-//    the plan keeps that off the paper's problems P1-P10.
+//    line by line on a full-height sub-line; the plan keeps that off the
+//    paper's problems P1-P10.
 //  * Stage 1 is bp::blend_rn, stage 2 y = a + b*k, bp::interp_rn and
-//    bp::accumulate_rn in view order: the roundings the banded instance's
-//    helpers compile to, written out, so K1/K2 give the banded kernel's
-//    volume bit for bit.
+//    bp::accumulate_rn in view order: roundings written out, since nvcc
+//    may contract one expression differently in two instances, so that
+//    every instance of the linear form gives the same volume bit for bit.
 //  * K3/K4 are the same kernel with stage 2's interpolation in the two-hot
 //    form (the kForm template parameter: bp::twohot_rn, the nonzero terms
 //    of the TPU kernel's contraction over all nh rows, in the dense sum's
@@ -79,178 +82,36 @@
 //    the windows, the copies and the plan are K1's. The kernel it replaced
 //    ran that contraction densely, 2*nh FMAs a sample (7.0e13 FLOP at P5),
 //    where this form does 2.
-// Only issue_window and stage1_lines<true> know where a column lies in the
-// image: a later change can give K5/K6 their window from the band layout
-// there.
-//
-// ---- K5/K6: subline_kernel<KPT> ---------------------------------------------
-// A block of 8 warps owns 8 consecutive voxel lines (flat line id
-// i*nj + j) and the whole k range; warp w owns line w and walks over ALL
-// projections, each voxel's sum in the registers of one lane. One step of
-// the projection loop stages `stage` projections: their matrices into
-// shared memory, then, per warp, the sub-line of each staged projection
-// (Fig. 3a: the blend of detector columns floor(x) and floor(x)+1) into the
-// warp's own shared-memory rows. Stage 2 (Fig. 3b) then strides the lanes
-// over k < khp and interpolates at y = a + b*k for the direct half and at
-// (nh-1) - y for the mirrored plane nz-1-k when k < nz/2 (O3).
-// Projection s of tile (i/bi, j/bj) reads band b = band[s/group][ti][tj],
-// the 2*bw detector columns from b*bw, at rel = floor(x) - b*bw; a line
-// whose rel misses [0, 2*bw-2] is dropped for that projection. The band
-// comes from the projection's group (group = nb for K6, 1 for K5), never
-// from the staging step, whose depth shared memory may cap below nb. The
-// line's validity is still decided against the TRUE detector width nw.
+// K5/K6 are the linear form with the band layout as the column source (the
+// kBanded template parameter). Only three places know where a column lies:
+//  * line_params: tile (i/bi, j/bj) of view v reads band
+//    b = band[v/group][i/bi][j/bj] (group = nb for K6, 1 for K5), and a
+//    line whose rel = floor(x) - b*bw misses [0, 2*bw-2] is dropped for the
+//    view, exactly as a line off the detector is. Validity is still decided
+//    against the TRUE detector width nw. The band is loaded beside the
+//    view's matrix, and the divisions by bi, bj, group and bw are
+//    multiply-shifts (bp::FastDiv), not integer divisions of some 25
+//    instructions each: together these took K5 from 87.2 to 80.8 ms at P5
+//    on an H100 (K1 79.8 ms in the same run).
+//  * issue_window and the two global-read paths (src_col): image column c
+//    is read from band c / bw at c mod bw. A valid line reads columns
+//    floor(x), floor(x) + 1 <= nw - 1, which that band holds (with c + 1
+//    beside it) with the values of the image itself, so a window may span
+//    several bands (an 8 x 8 tile covers two (4, 8) band tiles), and no
+//    address depends on the band array's values.
+// Everything else is K1's: the plan, the windows' rows, the ring, stage 2
+// and the accumulation in view order. So where no line is dropped (the band
+// search guarantees it) K5 = K6 = K1 = K2 bit for bit, at any nz, and K6
+// walks every view one window ahead whatever nb is.
 
 #include <climits>
+#include <type_traits>
 
 #include "backproject_common.cuh"
 
 namespace {
 
-using bp::kLines;
-using bp::kThreads;
 using bp::kWarp;
-
-struct BandArgs {
-  const int* band;   // (n_proj / group, n_ti, n_tj)
-  int bw, n_bands, bi, bj, n_ti, n_tj, group;
-};
-
-// First detector column of a valid line's sub-line in projection s, or
-// null when the line is dropped for it (the band misses floor(x)).
-__device__ __forceinline__ const float* columns(const float* img,
-                                                const BandArgs& B, int s,
-                                                int ti, int tj, int ixc,
-                                                int nh) {
-  const int b = __ldg(B.band + ((size_t)(s / B.group) * B.n_ti + ti) * B.n_tj
-                      + tj);
-  const int rel = ixc - b * B.bw;
-  if (rel < 0 || rel > 2 * B.bw - 2) return nullptr;
-  return img + (((size_t)s * B.n_bands + b) * (2 * B.bw) + rel) * nh;
-}
-
-template <int KPT>
-__global__ void __launch_bounds__(kThreads)
-subline_kernel(const float* __restrict__ img, const float* __restrict__ mat,
-               float* __restrict__ out, int n_proj, int nw, int nh, int ni,
-               int nj, int nz, int stage, BandArgs band) {
-  extern __shared__ float smem[];
-  float* smat = smem;                                  // stage * 12
-  float* sbuf = smem + bp::mat_floats(stage);          // kLines * stage * nh
-
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const long long line = (long long)blockIdx.x * kLines + warp;
-  const bool active = line < (long long)ni * nj;       // ragged last block
-  const int li = active ? (int)(line / nj) : 0;
-  const int lj = active ? (int)(line % nj) : 0;
-  const float fi = (float)li;
-  const float fj = (float)lj;
-  const int ti = li / band.bi;
-  const int tj = lj / band.bj;
-  const int kh = nz / 2;          // mirrored half
-  const int khp = nz - kh;        // direct half (kh + 1 when nz is odd)
-  const float ylast = (float)(nh - 2);
-  const float ytop = (float)(nh - 1);
-  float* buf = sbuf + (size_t)warp * stage * nh;
-
-  float acc_lo[KPT];
-  float acc_hi[KPT];
-#pragma unroll
-  for (int r = 0; r < KPT; ++r) {
-    acc_lo[r] = 0.0f;
-    acc_hi[r] = 0.0f;
-  }
-
-  for (int s0 = 0; s0 < n_proj; s0 += stage) {
-    const int nbs = min(stage, n_proj - s0);
-    __syncthreads();  // the previous step is done with smat and buf
-    for (int t = threadIdx.x; t < nbs * 12; t += kThreads)
-      smat[t] = mat[(size_t)s0 * 12 + t];
-    __syncthreads();
-    if (!active) continue;
-
-    // stage 1: one blended sub-line per staged projection
-    for (int b = 0; b < nbs; ++b) {
-      float f, dx;
-      int ixc;
-      if (!bp::line_scalars(smat + b * 12, fi, fj, nw, f, ixc, dx)) continue;
-      const float* c0 = columns(img, band, s0 + b, ti, tj, ixc, nh);
-      if (c0 == nullptr) continue;
-      bp::blend_columns(c0, dx, nh, lane, buf + (size_t)b * nh);
-    }
-    __syncwarp();
-
-    // stage 2: y-affine interpolation, direct half + O3 mirror
-    for (int b = 0; b < nbs; ++b) {
-      const float* m = smat + b * 12;
-      float f, dx;
-      int ixc;
-      if (!bp::line_scalars(m, fi, fj, nw, f, ixc, dx)) continue;
-      if (columns(img, band, s0 + b, ti, tj, ixc, nh) == nullptr) continue;
-      float a, bk, w;
-      bp::y_affine(m, fi, fj, f, a, bk, w);
-      const float* row = buf + (size_t)b * nh;
-#pragma unroll
-      for (int r = 0; r < KPT; ++r) {
-        const int k = lane + r * kWarp;
-        if (k < khp) {
-          const float y = __fadd_rn(a, __fmul_rn(bk, (float)k));
-          acc_lo[r] += bp::interp(row, y, ylast) * w;
-          if (k < kh)
-            acc_hi[r] += bp::interp(row, __fsub_rn(ytop, y), ylast) * w;
-        }
-      }
-    }
-  }
-
-  if (!active) return;
-  float* o = out + (size_t)line * nz;
-#pragma unroll
-  for (int r = 0; r < KPT; ++r) {
-    const int k = lane + r * kWarp;
-    if (k < khp) o[k] = acc_lo[r];
-    if (k < kh) o[nz - 1 - k] = acc_hi[r];
-  }
-}
-
-template <int KPT>
-int launch_one(const float* img, const float* mat, float* out, int n_proj,
-               int nw, int nh, int ni, int nj, int nz, int stage,
-               const BandArgs& band, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)bp::mat_floats(stage) +
-                                       (size_t)kLines * stage * nh);
-  cudaError_t e = cudaFuncSetAttribute(
-      subline_kernel<KPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long n_lines = (long long)ni * nj;
-  const unsigned blocks = (unsigned)((n_lines + kLines - 1) / kLines);
-  subline_kernel<KPT><<<blocks, kThreads, smem, stream>>>(
-      img, mat, out, n_proj, nw, nh, ni, nj, nz, stage, band);
-  return (int)cudaGetLastError();
-}
-
-// One instance per k-per-lane count: the direct half's khp k values are
-// spread over the 32 lanes, KPT a lane.
-int launch(const float* img, const float* mat, float* out, int n_proj,
-           int nw, int nh, int ni, int nj, int nz, int stage,
-           const BandArgs& band, cudaStream_t st) {
-  if (n_proj < 0 || nw < 2 || nh < 2 || ni < 1 || nj < 1 || nz < 1 ||
-      stage < 1)
-    return (int)cudaErrorInvalidValue;
-  const int need = (nz - nz / 2 + kWarp - 1) / kWarp;
-#define BP_LAUNCH(K)                                                       \
-  return launch_one<K>(img, mat, out, n_proj, nw, nh, ni, nj, nz, stage, \
-                       band, st)
-  if (need <= 1) BP_LAUNCH(1);
-  if (need <= 2) BP_LAUNCH(2);
-  if (need <= 4) BP_LAUNCH(4);
-  if (need <= 8) BP_LAUNCH(8);
-  if (need <= 16) BP_LAUNCH(16);
-  if (need <= 32) BP_LAUNCH(32);
-#undef BP_LAUNCH
-  return (int)cudaErrorInvalidValue;
-}
 
 // ---------------------------------------------------------------------------
 // K1-K4: the tiled kernel (see the note at the top of this file)
@@ -261,6 +122,7 @@ namespace tiled {
 constexpr int kTi = 8;                    // line rows of a tile, one per warp
 constexpr int kTj = 8;                    // lines of a warp
 constexpr int kWarps = kTi;
+constexpr int kThreads = kWarps * kWarp;
 constexpr int kTileLines = kTi * kTj;
 constexpr int kWinCols = 16;              // detector columns a window holds
 constexpr int kRing = 2;                  // windows in the ring of copies
@@ -375,12 +237,26 @@ __device__ __forceinline__ int seg_len(int& r0, int r1, int nh, bool vec) {
 }
 
 struct Args {
-  const float* img;
+  const float* img;   // (n_proj, view_cols, nh)
   const float* mat;
   float* out;
+  const int* band;    // kBanded: (n_proj / group, n_bti, n_btj)
   int n_proj, nw, nh, ni, nj, nz, win_rows, n_tj;
+  int view_cols;      // nw, or n_bands * 2*bw for the band layout
+  // kBanded only: the band width, the band tiles of the volume and the
+  // divisors bw, bi, bj (a band tile's lines) and group (its views)
+  int bw, n_bti, n_btj;
+  bp::FastDiv div_bw, div_bi, div_bj, div_group;
   bool vec;
 };
+
+// The column of img (within a view) that holds image column c and, beside
+// it, c + 1: c itself, or in the band layout band c / bw at c mod bw (c mod
+// bw + 1 < 2*bw).
+template <bool kBanded>
+__device__ __forceinline__ int src_col(const Args& A, int c) {
+  return kBanded ? c + A.div_bw.div(c) * A.bw : c;
+}
 
 struct Smem {
   float* lines;   // this warp's sub-line buffers
@@ -397,6 +273,7 @@ struct Smem {
 // lines lies on the detector, and the warp's bounds of the view's window
 // (columns, and the rows of the k chunk's direct and mirrored samples)
 // into slot v % 2.
+template <bool kBanded>
 __device__ __forceinline__ void line_params(const Args& A, const Smem& S,
                                            int v, int li, int j0, int k0,
                                            int kd1, int km1, int warp,
@@ -415,8 +292,19 @@ __device__ __forceinline__ void line_params(const Args& A, const Smem& S,
     const float fj = (float)lj;
     float f = 0.0f, dx = 0.0f, a = 0.0f, bk = 0.0f, w = 0.0f;
     int ixc = 0;
-    const bool ok = li < A.ni && lj < A.nj &&
-                    bp::line_scalars(mv, fi, fj, A.nw, f, ixc, dx);
+    bool ok = li < A.ni && lj < A.nj;
+    // the line's band of view v, loaded beside the matrix rather than
+    // after the line is known valid, so that the two latencies overlap
+    const int band =
+        kBanded && ok
+            ? __ldg(A.band + ((size_t)A.div_group.div(v) * A.n_bti +
+                              A.div_bi.div(li)) * A.n_btj + A.div_bj.div(lj))
+            : 0;
+    ok = ok && bp::line_scalars(mv, fi, fj, A.nw, f, ixc, dx);
+    if (kBanded && ok) {   // dropped where its tile's band misses ixc
+      const int rel = ixc - band * A.bw;
+      ok = rel >= 0 && rel <= 2 * A.bw - 2;
+    }
     if (ok) {
       bp::y_affine(mv, fi, fj, f, a, bk, w);
       b[0] = ixc;
@@ -456,6 +344,7 @@ __device__ __forceinline__ void line_params(const Args& A, const Smem& S,
 // Every warp: the window of view v from the warps' bounds, its descriptor
 // (stored by warp 0) and this warp's share of its copies (columns
 // warp, warp + 8), committed as one group (empty where nothing is copied).
+template <bool kBanded>
 __device__ __forceinline__ void issue_window(const Args& A, const Smem& S,
                                             int v, int warp, int lane) {
   int b[kBounds] = {INT_MAX, -1, INT_MAX, -1, INT_MAX, -1};
@@ -493,23 +382,36 @@ __device__ __forceinline__ void issue_window(const Args& A, const Smem& S,
   if (path == kPathWindow) {
     const int unit = A.vec ? 4 : 1;
     float* dst = S.win + (size_t)(v % kRing) * kWinCols * A.win_rows;
-    const float* src = A.img + ((size_t)v * A.nw + clo) * A.nh;
-    for (int c = warp; c < nc; c += kWarps)
-      for (int r = lane * unit; r < n_rows; r += kWarp * unit)
-        cp_async(dst + c * n_rows + r,
-                 src + (size_t)c * A.nh + (r < nd ? d0 + r : m0 + (r - nd)),
-                 A.vec);
+    if (!kBanded) {
+      // column c at a step of nh from the window's first: the card runs K1
+      // up to 1.5% slower with the banded form's address arithmetic here
+      const float* src = A.img + ((size_t)v * A.nw + clo) * A.nh;
+      for (int c = warp; c < nc; c += kWarps)
+        for (int r = lane * unit; r < n_rows; r += kWarp * unit)
+          cp_async(dst + c * n_rows + r,
+                   src + (size_t)c * A.nh + (r < nd ? d0 + r : m0 + (r - nd)),
+                   A.vec);
+    } else {
+      const float* view = A.img + (size_t)v * A.view_cols * A.nh;
+      for (int c = warp; c < nc; c += kWarps) {
+        const float* src = view + (size_t)src_col<kBanded>(A, clo + c) * A.nh;
+        for (int r = lane * unit; r < n_rows; r += kWarp * unit)
+          cp_async(dst + c * n_rows + r,
+                   src + (r < nd ? d0 + r : m0 + (r - nd)), A.vec);
+      }
+    }
   }
   cp_async_commit();
 }
 
 // Stage 1 for the warp's 8 lines, four at a time: rows [0, n_rows) of the
-// window (or the same detector rows of global memory) of columns ixc and
-// ixc + 1 blended into each line's buffer. An invalid line reads column
-// 0 and is never read back.
-template <bool kGlobal>
-__device__ __forceinline__ void stage1_lines(const float* src, int cstride,
-                                             int c_lo, const int* pcol,
+// window (or the same detector rows of global memory, column c at
+// src_col(c)) of columns ixc and ixc + 1 blended into each line's buffer.
+// An invalid line reads column 0 and is never read back.
+template <bool kGlobal, bool kBanded>
+__device__ __forceinline__ void stage1_lines(const Args& A, const float* src,
+                                             int cstride, int c_lo,
+                                             const int* pcol,
                                              const float* par, int n_rows,
                                              int d0, int nd, int m0,
                                              int win_rows, float* lines,
@@ -521,7 +423,9 @@ __device__ __forceinline__ void stage1_lines(const float* src, int cstride,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int ixc = pcol[h + q];
-      off[q] = ixc < 0 ? 0 : (ixc - c_lo) * cstride;
+      off[q] = ixc < 0     ? 0
+               : kGlobal ? src_col<kBanded>(A, ixc) * cstride
+                         : (ixc - c_lo) * cstride;
       dx[q] = par[(h + q) * 4];
     }
     for (int r = lane; r < n_rows; r += kWarp) {
@@ -584,7 +488,7 @@ __device__ __forceinline__ void stage2_lines(float (&acc_lo)[kTj][KPT],
   }
 }
 
-template <int KPT, int kForm>
+template <int KPT, int kForm, bool kBanded>
 __global__ void __launch_bounds__(kThreads, min_blocks(KPT))
 tile_kernel(Args A) {
   extern __shared__ float smem[];
@@ -624,36 +528,38 @@ tile_kernel(Args A) {
 
   // prologue: window 0 in flight, view 1's scalars ready
   if (A.n_proj > 0) {
-    line_params(A, S, 0, li, j0, k0, kd1, km1, warp, lane);
+    line_params<kBanded>(A, S, 0, li, j0, k0, kd1, km1, warp, lane);
     __syncthreads();
-    issue_window(A, S, 0, warp, lane);
+    issue_window<kBanded>(A, S, 0, warp, lane);
   }
-  if (A.n_proj > 1) line_params(A, S, 1, li, j0, k0, kd1, km1, warp, lane);
+  if (A.n_proj > 1)
+    line_params<kBanded>(A, S, 1, li, j0, k0, kd1, km1, warp, lane);
 
   for (int s = 0; s < A.n_proj; ++s) {
     cp_async_wait_all();   // this thread's copies of window s landed
     __syncthreads();   // all of window s, its scalars and descriptor are
     //                    visible; every warp is done with view s - 1
-    if (s + 1 < A.n_proj) issue_window(A, S, s + 1, warp, lane);
+    if (s + 1 < A.n_proj) issue_window<kBanded>(A, S, s + 1, warp, lane);
     if (s + 2 < A.n_proj)
-      line_params(A, S, s + 2, li, j0, k0, kd1, km1, warp, lane);
+      line_params<kBanded>(A, S, s + 2, li, j0, k0, kd1, km1, warp, lane);
 
     const int* d = S.desc + (s % kRing) * kDesc;
     const int c_lo = d[kCLo], d0 = d[kD0], nd = d[kNd], m0 = d[kM0];
     const int nm = d[kNm], path = d[kPath];
     const int n_rows = nd + nm;
     const int ps = (s % kParSlots) * kTileLines + warp * kTj;
-    const float* gimg = A.img + (size_t)s * A.nw * A.nh;
+    const float* gimg = A.img + (size_t)s * A.view_cols * A.nh;
     if (path != kPathGlobalRows) {
       // stage 1: each line's window rows of columns ixc, ixc + 1
       if (path == kPathWindow)
-        stage1_lines<false>(
-            S.win + (size_t)(s % kRing) * kWinCols * A.win_rows, n_rows,
+        stage1_lines<false, kBanded>(
+            A, S.win + (size_t)(s % kRing) * kWinCols * A.win_rows, n_rows,
             c_lo, S.pcol + ps, S.par + (size_t)ps * 4, n_rows, d0, nd, m0,
             A.win_rows, S.lines, lane);
       else
-        stage1_lines<true>(gimg, A.nh, 0, S.pcol + ps, S.par + (size_t)ps * 4,
-                           n_rows, d0, nd, m0, A.win_rows, S.lines, lane);
+        stage1_lines<true, kBanded>(A, gimg, A.nh, 0, S.pcol + ps,
+                                    S.par + (size_t)ps * 4, n_rows, d0, nd,
+                                    m0, A.win_rows, S.lines, lane);
       __syncwarp();
       // stage 2
       const float* par = S.par + (size_t)ps * 4;
@@ -675,7 +581,7 @@ tile_kernel(Args A) {
         if (ixc < 0) continue;                   // warp-uniform
         const float* p = S.par + (size_t)(ps + l) * 4;
         const float dx = p[0], a = p[1], bk = p[2], w = p[3];
-        const float* c0 = gimg + (size_t)ixc * A.nh;
+        const float* c0 = gimg + (size_t)src_col<kBanded>(A, ixc) * A.nh;
         for (int r = lane; r < n_rows; r += kWarp) {
           const int y = r < nd ? d0 + r : m0 + (r - nd);
           row[y] = bp::blend_rn(__ldg(c0 + y), __ldg(c0 + A.nh + y), dx);
@@ -714,16 +620,71 @@ tile_kernel(Args A) {
   }
 }
 
-// Lets tile_kernel<KPT, kForm> take `bytes` of dynamic shared memory. A
-// refusal (more than the card has) is returned and cleared, so that it
-// does not stay behind as the last error of a later launch.
-template <int KPT, int kForm>
+// Lets tile_kernel<KPT, kForm, kBanded> take `bytes` of dynamic shared
+// memory. A refusal (more than the card has) is returned and cleared, so
+// that it does not stay behind as the last error of a later launch.
+template <int KPT, int kForm, bool kBanded>
 int set_smem(int bytes) {
   const cudaError_t e = cudaFuncSetAttribute(
-      tile_kernel<KPT, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      tile_kernel<KPT, kForm, kBanded>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) cudaGetLastError();
   return (int)e;
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// fn(Int<KPT>(), Int<kForm>(), std::bool_constant<kBanded>()) for the
+// instance of kpt (1, 2, 4), form (kLinear, kTwoHot) and source (banded:
+// the linear form only); cudaErrorInvalidValue where there is none.
+template <class Fn>
+int with_instance(int kpt, int form, bool banded, Fn fn) {
+  const auto by_form = [&](auto k) -> int {
+    if (banded)
+      return form == kLinear ? fn(k, Int<kLinear>(), std::true_type())
+                             : (int)cudaErrorInvalidValue;
+    if (form == kLinear) return fn(k, Int<kLinear>(), std::false_type());
+    if (form == kTwoHot) return fn(k, Int<kTwoHot>(), std::false_type());
+    return (int)cudaErrorInvalidValue;
+  };
+  switch (kpt) {
+    case 1: return by_form(Int<1>());
+    case 2: return by_form(Int<2>());
+    case 4: return by_form(Int<4>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One launch on `stream` with k chunks of 32*kpt planes and window slots
+// of win_rows rows; the grid and the shared memory follow from them.
+// Returns cudaGetLastError() after the launch (0 on success), or the error
+// of a block that asks more shared memory than the card has. Does not
+// synchronise and allocates nothing.
+int launch(Args a, int kpt, int form, bool banded, void* stream) {
+  if (a.n_proj < 0 || a.nw < 2 || a.nh < 2 || a.ni < 1 || a.nj < 1 ||
+      a.nz < 1 || (kpt != 1 && kpt != 2 && kpt != 4) || a.win_rows < 4 ||
+      a.win_rows % 4 || (long long)a.view_cols * a.nh > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int khp = a.nz - a.nz / 2;
+  const long long n_chunks = (khp + kpt * kWarp - 1) / (kpt * kWarp);
+  const int n_ti = (a.ni + kTi - 1) / kTi;
+  a.n_tj = (a.nj + kTj - 1) / kTj;
+  if (n_chunks > 65535 || (long long)n_ti * a.n_tj > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  a.vec = a.nh % 4 == 0 && ((size_t)a.img & 15) == 0;
+  const int smem = (int)smem_bytes(a.nh, a.win_rows);
+  const dim3 grid((unsigned)(n_ti * a.n_tj), (unsigned)n_chunks);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return with_instance(kpt, form, banded, [&](auto k, auto f, auto b) {
+    constexpr int K = decltype(k)::value;
+    constexpr int F = decltype(f)::value;
+    constexpr bool B = decltype(b)::value;
+    const int e = set_smem<K, F, B>(smem);
+    if (e != 0) return e;
+    tile_kernel<K, F, B><<<grid, kThreads, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace tiled
@@ -732,129 +693,100 @@ int set_smem(int bytes) {
 
 extern "C" {
 
-// Dynamic shared memory one block needs for a staging depth and detector
-// height; the wrapper checks it against the card's per-block limit.
-size_t bp_subline_smem_bytes(int nh, int stage) {
-  return sizeof(float) * ((size_t)bp::mat_floats(stage) +
-                          (size_t)kLines * stage * nh);
-}
-
-// Largest k extent of the direct half (nz - nz/2) the kernel takes.
-int bp_subline_max_khp() { return 32 * kWarp; }
-
 const char* bp_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1-K4: the tiled kernel's shared memory per block for a detector height
-// and window slots of win_rows rows (either form).
+// The tiled kernel's shared memory per block for a detector height and
+// window slots of win_rows rows (every instance).
 size_t bp_tile_smem_bytes(int nh, int win_rows) {
   return tiled::smem_bytes(nh, win_rows);
 }
 
 // Blocks of the tiled kernel an SM holds at this plan, its registers per
-// thread and its local (spill) bytes per thread, for the instance of kpt
-// and form (0 linear, 1 two-hot); returns a CUDA error.
-int bp_tile_occupancy(int kpt, int form, int nh, int win_rows, int* blocks,
-                      int* regs, int* local_bytes) {
+// thread and its local (spill) bytes per thread, for the instance of kpt,
+// form (0 linear, 1 two-hot) and source (banded 1: K5/K6, the linear
+// form); returns a CUDA error.
+int bp_tile_occupancy(int kpt, int form, int banded, int nh, int win_rows,
+                      int* blocks, int* regs, int* local_bytes) {
   const int smem = (int)tiled::smem_bytes(nh, win_rows);
   cudaFuncAttributes fa;
-  cudaError_t e;
-#define BP_OCCUPANCY(K, F)                                                 \
-  e = (cudaError_t)tiled::set_smem<K, F>(smem);                            \
-  if (e == cudaSuccess)                                                    \
-    e = cudaFuncGetAttributes(&fa, tiled::tile_kernel<K, F>);              \
-  if (e == cudaSuccess)                                                    \
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                     \
-        blocks, tiled::tile_kernel<K, F>, kThreads, smem)
-#define BP_OCCUPANCY_FORM(K)                                               \
-  if (form == tiled::kLinear) {                                            \
-    BP_OCCUPANCY(K, tiled::kLinear);                                       \
-  } else if (form == tiled::kTwoHot) {                                     \
-    BP_OCCUPANCY(K, tiled::kTwoHot);                                       \
-  } else {                                                                 \
-    return (int)cudaErrorInvalidValue;                                     \
-  }
-  if (kpt == 1) {
-    BP_OCCUPANCY_FORM(1)
-  } else if (kpt == 2) {
-    BP_OCCUPANCY_FORM(2)
-  } else if (kpt == 4) {
-    BP_OCCUPANCY_FORM(4)
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef BP_OCCUPANCY_FORM
-#undef BP_OCCUPANCY
-  if (e != cudaSuccess) return (int)e;
+  const int e = tiled::with_instance(
+      kpt, form, banded != 0, [&](auto k, auto f, auto b) {
+        constexpr int K = decltype(k)::value;
+        constexpr int F = decltype(f)::value;
+        constexpr bool B = decltype(b)::value;
+        cudaError_t err = (cudaError_t)tiled::set_smem<K, F, B>(smem);
+        if (err == cudaSuccess)
+          err = cudaFuncGetAttributes(&fa, tiled::tile_kernel<K, F, B>);
+        if (err == cudaSuccess)
+          err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              blocks, tiled::tile_kernel<K, F, B>, tiled::kThreads, smem);
+        return (int)err;
+      });
+  if (e != 0) return e;
   *regs = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;
   return 0;
 }
 
-// K1-K4: launch the tiled kernel on `stream` with k chunks of 32*kpt planes
-// (kpt 1, 2 or 4), window slots of win_rows rows (a multiple of 4) and
-// stage 2 in `form` (0 linear: K1/K2; 1 two-hot: K3/K4); the grid and the
-// shared memory follow from them.
-// Returns cudaGetLastError() after the launch (0 on success), or the error
-// of a block that asks more shared memory than the card has. Does not
-// synchronise and allocates nothing.
+// K1-K4: img_t (n_proj, nw, nh), k chunks of 32*kpt planes (kpt 1, 2 or
+// 4), window slots of win_rows rows (a multiple of 4) and stage 2 in
+// `form` (0 linear: K1/K2; 1 two-hot: K3/K4). See tiled::launch.
 int bp_tile_launch(const float* img_t, const float* mat, float* out,
                    int n_proj, int nw, int nh, int ni, int nj, int nz,
                    int kpt, int win_rows, int form, void* stream) {
-  if (n_proj < 0 || nw < 2 || nh < 2 || ni < 1 || nj < 1 || nz < 1 ||
-      (kpt != 1 && kpt != 2 && kpt != 4) || win_rows < 4 || win_rows % 4 ||
-      (form != tiled::kLinear && form != tiled::kTwoHot))
-    return (int)cudaErrorInvalidValue;
-  const int khp = nz - nz / 2;
-  const long long n_chunks = (khp + kpt * kWarp - 1) / (kpt * kWarp);
-  const int n_ti = (ni + tiled::kTi - 1) / tiled::kTi;
-  const int n_tj = (nj + tiled::kTj - 1) / tiled::kTj;
-  if (n_chunks > 65535 || (long long)n_ti * n_tj > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const bool vec = nh % 4 == 0 && ((size_t)img_t & 15) == 0;
-  const tiled::Args args{img_t, mat, out, n_proj, nw, nh, ni, nj, nz,
-                         win_rows, n_tj, vec};
-  const int smem = (int)tiled::smem_bytes(nh, win_rows);
-  const dim3 grid((unsigned)(n_ti * n_tj), (unsigned)n_chunks);
-  const cudaStream_t st = (cudaStream_t)stream;
-#define BP_TILE_LAUNCH(K, F)                                               \
-  {                                                                        \
-    const cudaError_t e = (cudaError_t)tiled::set_smem<K, F>(smem);        \
-    if (e != cudaSuccess) return (int)e;                                   \
-    tiled::tile_kernel<K, F><<<grid, kThreads, smem, st>>>(args);          \
-  }
-#define BP_TILE_LAUNCH_FORM(K)                                             \
-  if (form == tiled::kLinear)                                              \
-    BP_TILE_LAUNCH(K, tiled::kLinear)                                      \
-  else                                                                     \
-    BP_TILE_LAUNCH(K, tiled::kTwoHot)
-  if (kpt == 1) {
-    BP_TILE_LAUNCH_FORM(1)
-  } else if (kpt == 2) {
-    BP_TILE_LAUNCH_FORM(2)
-  } else {
-    BP_TILE_LAUNCH_FORM(4)
-  }
-#undef BP_TILE_LAUNCH_FORM
-#undef BP_TILE_LAUNCH
-  return (int)cudaGetLastError();
+  tiled::Args a{};
+  a.img = img_t;
+  a.mat = mat;
+  a.out = out;
+  a.n_proj = n_proj;
+  a.nw = nw;
+  a.nh = nh;
+  a.ni = ni;
+  a.nj = nj;
+  a.nz = nz;
+  a.win_rows = win_rows;
+  a.view_cols = nw;
+  return tiled::launch(a, kpt, form, false, stream);
 }
 
-// K5/K6: img_b (n_proj, n_bands, 2*bw, nh), band (n_proj/group, ni/bi,
-// nj/bj) int32 with values in [0, n_bands). nw is the TRUE detector width.
-// The tiles must divide the volume and bj be a multiple of 8, so a block's
-// 8 lines share one tile.
-int bp_banded_launch(const float* img_b, const float* mat, const int* band,
-                     float* out, int n_proj, int nw, int nh, int ni, int nj,
-                     int nz, int stage, int bw, int n_bands, int bi, int bj,
-                     int group, void* stream) {
-  if (band == nullptr || bw < 1 || n_bands < 1 || bi < 1 || bj < 8 ||
-      bj % 8 || ni % bi || nj % bj || group < 1 || n_proj % group)
+// K5/K6: the linear form reading img_b (n_proj, n_bands, 2*bw, nh), band
+// (n_proj/group, ni/bi, nj/bj) int32 with values in [0, n_bands); nw is
+// the TRUE detector width. The band tiles must divide the volume and bj be
+// a multiple of 8, so the 8 lines of a warp share one band tile; the
+// bands must hold every image column. Plan and return as bp_tile_launch.
+int bp_tile_launch_banded(const float* img_b, const float* mat,
+                          const int* band, float* out, int n_proj, int nw,
+                          int nh, int ni, int nj, int nz, int kpt,
+                          int win_rows, int bw, int n_bands, int bi, int bj,
+                          int group, void* stream) {
+  if (band == nullptr || bw < 1 || n_bands < 1 || nw < 2 ||
+      (nw - 1) / bw >= n_bands || bi < 1 || bj < 8 || bj % 8 || ni < 1 ||
+      nj < 1 || ni % bi || nj % bj || group < 1 || n_proj % group ||
+      (long long)n_bands * 2 * bw * nh > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const BandArgs args{band, bw, n_bands, bi, bj, ni / bi, nj / bj, group};
-  return launch(img_b, mat, out, n_proj, nw, nh, ni, nj, nz, stage, args,
-                (cudaStream_t)stream);
+  tiled::Args a{};
+  a.img = img_b;
+  a.mat = mat;
+  a.out = out;
+  a.band = band;
+  a.n_proj = n_proj;
+  a.nw = nw;
+  a.nh = nh;
+  a.ni = ni;
+  a.nj = nj;
+  a.nz = nz;
+  a.win_rows = win_rows;
+  a.view_cols = n_bands * 2 * bw;
+  a.bw = bw;
+  a.n_bti = ni / bi;
+  a.n_btj = nj / bj;
+  a.div_bw = bp::FastDiv(bw);
+  a.div_bi = bp::FastDiv(bi);
+  a.div_bj = bp::FastDiv(bj);
+  a.div_group = bp::FastDiv(group);
+  return tiled::launch(a, kpt, tiled::kLinear, true, stream);
 }
 
 }  // extern "C"

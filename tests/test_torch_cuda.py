@@ -39,6 +39,8 @@ ONEHOT_K1_BAR = 1e-6        # tests/test_kernels.py, K3 against K1
 # columns from global memory) and a 900-row detector on 100 planes
 # (windows taller than their slot: line by line at full height)
 TWO_HOT_PATHS = [(1000, 512, 4, 16), (128, 256, 4, 16), (100, 900, 4, 16)]
+# the tiled kernel's instances: (form, banded)
+INSTANCES = [(ks.LINEAR, 0), (ks.TWO_HOT, 0), (ks.LINEAR, 1)]
 
 
 @pytest.fixture
@@ -120,10 +122,8 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     img_t, mats, _ = _case(8, 16, 2, cuda)
-    # the banded kernel keeps the old template's depth limit; the tiled
-    # K1/K2 take any nz (test_tiled_kernel_past_the_old_depth_limit)
-    with pytest.raises(ValueError, match="largest depth"):
-        ops.backproject_banded(img_t, mats, (8, 8, 4098))
+    # every kernel takes any nz now (test_banded_kernels_past_the_old_depth_
+    # limit, test_tiled_kernel_past_the_old_depth_limit)
     with pytest.raises(ValueError, match="contiguous"):
         ks.backproject_subline_kernel(img_t.transpose(1, 2).contiguous()
                                       .transpose(1, 2), mats, (8, 8, 8))
@@ -298,6 +298,76 @@ def test_new_variants_on_card_match_plain_path(cuda, variant, kernel):
     assert rel_rmse(_cpu(vol), _cpu(cpu)) < BAR
 
 
+def _banded_pair(img_t, mats, pshape, block, nproj, bw0=32):
+    """K5 and K6 (nb = every view) on ``pshape`` under their own band
+    schedules, each with its plain version."""
+    outs = []
+    for group in (1, nproj):
+        img_b, band, bw = kb.band_schedule(img_t, mats, pshape, block=block,
+                                           bw=bw0, group=group)
+        kw = dict(block=block, bw=bw, nw=img_t.shape[1])
+        plain = kb.backproject_banded_plain(img_b, mats, band, pshape,
+                                            group=group, **kw)
+        out = (kb.backproject_banded_kernel(img_b, mats, band, pshape, **kw)
+               if group == 1 else
+               kb.backproject_banded_fused(img_b, mats, band, pshape,
+                                           nb=group, **kw))
+        outs.append((out, plain))
+    return outs
+
+
+@pytest.mark.parametrize("nz,det,nproj", [(2049, 1024, 4), (4098, 1024, 4)])
+def test_banded_kernels_past_the_old_depth_limit(cuda, nz, det, nproj):
+    """K5/K6 past the 2048 planes of the kernel they ran on before the
+    tiled one (which refused nz = 4098): K1's volume bit for bit, and
+    their plain version's within 1e-5."""
+    img_t, mats, shape = _case(nz, det, nproj, cuda, lines=16)
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    for out, plain in _banded_pair(img_t, mats, shape, (4, 8), nproj):
+        assert torch.equal(out, k1)
+        assert rel_rmse(_cpu(out), _cpu(plain)) < BAR
+    assert kb.LAUNCHES == {"backproject_banded_kernel": 1,
+                           "backproject_banded_fused": 1}
+
+
+@pytest.mark.parametrize("n,det,nproj", [(12, 16, 4), (20, 12, 7),
+                                         (13, 17, 5)])
+@pytest.mark.parametrize("block", [(4, 8), (8, 16)])
+def test_banded_kernels_on_ragged_tiles(cuda, n, det, nproj, block):
+    """Band tiles that leave the kernel's 8 x 8 tiles ragged (ni = 12 or 20
+    with BI = 4): the warps and lanes past the volume read no band. K5/K6
+    on the padded volume give unpadded K1's volume bit for bit."""
+    img_t, mats, shape = _case(n, det, nproj, cuda, seed=7)
+    pshape = (-(-n // block[0]) * block[0], -(-n // block[1]) * block[1], n)
+    k1 = ks.backproject_subline_kernel(img_t, mats, shape)
+    for out, plain in _banded_pair(img_t, mats, pshape, block, nproj, 8):
+        assert torch.equal(out[:n, :n], k1)
+        assert rel_rmse(_cpu(out), _cpu(plain)) < BAR
+
+
+@pytest.mark.parametrize("group", [1, 3])
+def test_banded_kernels_drop_the_lines_a_shifted_band_misses(cuda, group):
+    """Bands of 8 columns moved one place right (tests/test_torch_banded_
+    tiles.py builds the same case): the lines left of their band are
+    dropped, as in the plain version."""
+    img_t, mats, shape = _case(16, 24, 6, cuda)
+    block, bw = (4, 8), 8
+    img_b, n_bands = kb.band_layout(img_t, bw)
+    band, _ = kb.tile_bands(mats, *shape[:2], *block, bw, n_bands, 24,
+                            group=group)
+    band = torch.clamp(band + 1, max=n_bands - 1)
+    kw = dict(block=block, bw=bw, nw=24)
+    plain = _cpu(kb.backproject_banded_plain(img_b, mats, band, shape,
+                                             group=group, **kw))
+    out = (kb.backproject_banded_kernel(img_b, mats, band, shape, **kw)
+           if group == 1 else
+           kb.backproject_banded_fused(img_b, mats, band, shape, nb=group,
+                                       **kw))
+    assert rel_rmse(_cpu(out), plain) < BAR
+    k1 = _cpu(ks.backproject_subline_kernel(img_t, mats, shape))
+    assert rel_rmse(_cpu(out), k1) > BAR      # lines were dropped
+
+
 # ---- the tiled K1/K2 kernel ----------------------------------------------
 
 
@@ -364,8 +434,9 @@ def test_k2_at_every_nb_gives_k1_bit_for_bit(cuda):
 def test_tiled_kernel_layout_and_occupancy(cuda):
     """The kernel's shared-memory layout equals the mirror the CPU tests
     plan with, and the card holds at least 2 blocks per SM at every plan
-    those tests check, in both forms (K1/K2 linear, K3/K4 two-hot); a
-    detector too tall for one block is refused."""
+    those tests check, in every instance (K1/K2 linear, K3/K4 two-hot,
+    K5/K6 linear from the bands); a detector too tall for one block is
+    refused."""
     import ctypes
     from test_torch_subline_tiles import _plan_cases, smem_bytes
     lib = ks._lib()
@@ -373,13 +444,18 @@ def test_tiled_kernel_layout_and_occupancy(cuda):
         plan = ks.launch_plan(shape, nh)
         assert lib.bp_tile_smem_bytes(nh, plan.win_rows) \
             == smem_bytes(nh, plan.win_rows), (shape, nh)
-        for form in (ks.LINEAR, ks.TWO_HOT):
+        for form, banded in INSTANCES:
             blocks, regs, local = (ctypes.c_int(), ctypes.c_int(),
                                    ctypes.c_int())
             assert lib.bp_tile_occupancy(
-                plan.kpt, form, nh, plan.win_rows, ctypes.byref(blocks),
-                ctypes.byref(regs), ctypes.byref(local)) == 0
-            assert blocks.value >= 2, (shape, nh, form)
+                plan.kpt, form, banded, nh, plan.win_rows,
+                ctypes.byref(blocks), ctypes.byref(regs),
+                ctypes.byref(local)) == 0
+            assert blocks.value >= 2, (shape, nh, form, banded)
+    blocks, regs, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    assert lib.bp_tile_occupancy(4, ks.TWO_HOT, 1, 512, 272,
+                                 ctypes.byref(blocks), ctypes.byref(regs),
+                                 ctypes.byref(local)) != 0   # no such instance
     img_t = torch.zeros((1, 2, 8192), device=cuda)
     mats = torch.zeros((1, 3, 4), device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):

@@ -198,17 +198,41 @@ def _interp_at(sm, y, nh, base, n_seg):
     return torch.where(valid, v, 0.0)
 
 
-def _mirror(img_t, mat, shape, windows=None, win_rows=None):
+class ImageColumns:
+    """Where K1-K4 read an image column: in ``img_t`` itself. The banded
+    K5/K6 read through their band layout instead
+    (``tests/test_torch_banded_tiles.py``)."""
+
+    def __init__(self, img_t):
+        self.img_t = img_t
+
+    def drop(self, s, i, j, ok, ixc):
+        """The lines of view ``s`` that stay valid: all of them."""
+        return ok
+
+    def window(self, s, c_lo, nc):
+        """The columns [c_lo, c_lo + nc) that ``issue_window`` copies."""
+        return self.img_t[s, c_lo:c_lo + nc]
+
+    def columns(self, s, ixc):
+        """Each line's two columns, as the global-read paths read them."""
+        return self.img_t[s][ixc], self.img_t[s][ixc + 1]
+
+
+def _mirror(img_t, mat, shape, windows=None, win_rows=None, source=None):
     """K1/K2 as the tiled kernel computes them: per k chunk, tile and
     view, each line's window rows of its two columns (read from the
     window, or from the image where the window has too many columns)
     blended into the line's buffer, addressed by detector row in stage 2
     over the chunk's direct planes and their mirrors. A view whose window
     has too many rows runs line by line on a full-height sub-line whose
-    other rows are NaN. Records each window in ``windows``; ``win_rows``
-    replaces the plan's window height."""
+    other rows are NaN. An invalid line samples y = NaN, as in the kernel.
+    Records each window in ``windows``; ``win_rows`` replaces the plan's
+    window height; ``source`` says where the columns are read and which
+    lines are dropped (by default :class:`ImageColumns`)."""
     ni, nj, nz = shape
     n_proj, nw, nh = img_t.shape
+    source = source or ImageColumns(img_t)
     plan = ks.launch_plan(shape, nh)
     win_rows = win_rows or plan.win_rows
     vec = nh % 4 == 0
@@ -223,7 +247,9 @@ def _mirror(img_t, mat, shape, windows=None, win_rows=None):
             for s in range(n_proj):
                 m = mat[s]
                 ok, f, ixc, dx = ks._line_scalars(m, i, j, nw)
-                a = (m[1, 0] * i + m[1, 1] * j + m[1, 3]) * f
+                ok = source.drop(s, i, j, ok, ixc)
+                a = torch.where(ok, (m[1, 0] * i + m[1, 1] * j + m[1, 3]) * f,
+                                float("nan"))
                 b = m[1, 2] * f
                 c_lo, nc, segs, path = _window(ok, ixc, a, b, k0, kd1, km1,
                                                nh, win_rows, vec)
@@ -236,13 +262,13 @@ def _mirror(img_t, mat, shape, windows=None, win_rows=None):
                                     + list(range(m0, m0 + nm)),
                                     dtype=torch.long)
                 if path == "window":
-                    win = img_t[s, c_lo:c_lo + nc][:, rows]
+                    win = source.window(s, c_lo, nc)[:, rows]
                     col = torch.where(ok, ixc - c_lo, 0)
-                else:               # the image's own columns
-                    win = img_t[s][:, rows]
-                    col = ixc
-                sm = win[col] * (1.0 - dx)[:, None] \
-                    + win[col + 1] * dx[:, None]          # stage 1
+                    c0, c1 = win[col], win[col + 1]
+                else:               # each line's columns, from the image
+                    c0, c1 = source.columns(s, torch.where(ok, ixc, 0))
+                    c0, c1 = c0[:, rows], c1[:, rows]
+                sm = c0 * (1.0 - dx)[:, None] + c1 * dx[:, None]  # stage 1
                 if path == "rows":  # full height, NaN off the window rows
                     full = torch.full((ti * tj, nh), float("nan"))
                     full[:, rows] = sm
