@@ -8,8 +8,8 @@ problems of the paper's Table 3:
   ``reconstruct`` with ``banded_pl``.
 
     python3 scripts/time_subline.py [--src DIR] [--problems P4 P5 P8]
-        [--kernels subline onehot banded] [--plans] [--volumes DIR]
-        [--tag NAME] [--seed N]
+        [--kernels subline onehot banded] [--plans] [--tiled]
+        [--volumes DIR] [--tag NAME] [--seed N]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's), so that two trees can be timed in turn in one
@@ -20,7 +20,13 @@ uniform random numbers from ``--seed``: the kernels' work does not depend
 on them. ``--plans`` also times K1 under each launch plan of ``PLANS``
 and requires each to give the default plan's volume bit for bit; it
 needs a tree whose ``bp_tile_occupancy`` takes the instance as kpt, form
-and source, as this checkout's does. ``--volumes DIR`` saves this run's
+and source, as this checkout's does. ``--tiled`` times the tiled
+``reconstruct`` with ``subline_pl`` (``out="device"``, step-major) at
+the tilings of ``TILINGS`` under two rules for the rows a plane spans in
+``launch_plan``: the call's depth (``ceil(nh / nz)``) and the launch's
+matrices (``plane_rows``, the default), in the order depth, matrices,
+matrices, depth, and requires the same volume bit for bit; it needs a
+tree with the tiled path. ``--volumes DIR`` saves this run's
 K3 volume at each problem as ``DIR/k3-<problem>-<tag>.pt`` and compares
 it with every other tag's saved there: bit for bit, and by rel-RMSE and
 max abs difference, so a run of the change after one of the parent says
@@ -41,6 +47,10 @@ ROOT = Path(__file__).resolve().parents[1]
 GROUPS = ("subline", "onehot", "banded")
 # (kpt, win_rows): k chunks of 32*kpt planes, window slots of win_rows rows
 PLANS = [(4, 272), (2, 272), (1, 272), (1, 208), (1, 144)]
+# problem -> [(tiling, proj_batch)] of --tiled: chip_smoke.py's tiled
+# runs, and at P5 slabs whose paired calls hold one full k chunk
+TILINGS = {"P5": [((256, 256, 96), 128), ((256, 256, 128), 128)],
+           "P10": [((650, 650, 325), None)]}
 
 
 def timed(fn, reps: int = 3) -> float:
@@ -74,6 +84,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", nargs="+", choices=GROUPS,
                     default=["subline"])
     ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--tiled", action="store_true")
     ap.add_argument("--volumes", default=None)
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--seed", type=int, default=0)
@@ -154,6 +165,10 @@ def main(argv=None) -> int:
                   f"sum {float(v1.double().sum()):.9e}", flush=True)
             if group == "subline" and args.plans:
                 time_plans(tag, label, ks, img_t, mats, shape, geom.nh, v1)
+            if group == "subline" and args.tiled:
+                for tiling, proj_batch in TILINGS.get(label, ()):
+                    time_tiled_rules(tag, label, ks, p, geom, tiling,
+                                     proj_batch)
             if group == "onehot" and args.volumes:
                 compare_volumes(tag, label, Path(args.volumes), v1)
             del v1, v2
@@ -178,6 +193,38 @@ def compare_volumes(tag, label, where: Path, k3) -> None:
               f"{bool(torch.equal(k3, ref))}, rel_rmse "
               f"{rel_rmse(k3, ref):.3e}, max abs {float(diff.max()):.3e}, "
               f"voxels that differ {int((k3 != ref).sum())}", flush=True)
+
+
+def time_tiled_rules(tag, label, ks, p, geom, tiling, proj_batch) -> None:
+    """The tiled reconstruct under the depth rule and the matrices rule
+    for the rows a plane spans (depth, matrices, matrices, depth)."""
+    import torch
+    import repro_torch
+    default_plan = ks.launch_plan
+
+    def depth_rule(shape, nh, rows=None):
+        return default_plan(shape, nh)
+
+    def run():
+        return repro_torch.reconstruct(p, geom, variant="subline_pl",
+                                       tiling=tiling, proj_batch=proj_batch,
+                                       out="device")
+    vols = {}
+    try:
+        for rule in ("depth", "matrices", "matrices", "depth"):
+            ks.launch_plan = depth_rule if rule == "depth" else default_plan
+            vols.setdefault(rule, run())
+            ms = timed(run)
+            print(f"[{tag}] {label} tiled reconstruct subline_pl tiling="
+                  f"{tiling} proj_batch={proj_batch} out=device, rows a "
+                  f"plane from the {rule}: {ms:.3f} ms", flush=True)
+    finally:
+        ks.launch_plan = default_plan
+    torch.cuda.synchronize()
+    if not torch.equal(vols["depth"], vols["matrices"]):
+        raise SystemExit("the two rules gave different volumes")
+    print(f"[{tag}] {label} tiled: both rules give the same volume bit for "
+          f"bit", flush=True)
 
 
 def time_plans(tag, label, ks, img_t, mats, shape, nh, k1) -> None:

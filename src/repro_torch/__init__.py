@@ -24,6 +24,9 @@ _LAZY = {
     "fdk_reconstruct": ("repro_torch.core.fdk", "fdk_reconstruct"),
     "CTGeometry": ("repro_torch.core.geometry", "CTGeometry"),
     "standard_geometry": ("repro_torch.core.geometry", "standard_geometry"),
+    "forward_project": ("repro_torch.core.forward", "forward_project"),
+    "TiledReconstructor": ("repro_torch.runtime.engine",
+                           "TiledReconstructor"),
 }
 
 __all__ = sorted(_LAZY)
@@ -49,5 +52,7 @@ def __dir__():
 if TYPE_CHECKING:   # static importers see the real symbols
     from repro_torch.api import ReconOptions, reconstruct  # noqa: F401
     from repro_torch.core.fdk import fdk_reconstruct  # noqa: F401
+    from repro_torch.core.forward import forward_project  # noqa: F401
     from repro_torch.core.geometry import (  # noqa: F401
         CTGeometry, standard_geometry)
+    from repro_torch.runtime.engine import TiledReconstructor  # noqa: F401

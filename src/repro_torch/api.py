@@ -147,7 +147,7 @@ def reconstruct(projections, geom: CTGeometry, method: str = "fdk",
     if method in ITERATIVE_METHODS:
         raise NotImplementedError(
             f"method={method!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md queue 1 item 8)")
+            f"(ROADMAP.md queue 1 item 1)")
     raise ValueError(
         f"method must be 'fdk' or one of {ITERATIVE_METHODS}, got "
         f"{method!r}")

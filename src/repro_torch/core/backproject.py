@@ -7,10 +7,13 @@ Every function below consumes the *transposed* layouts of §3.1.1:
     vol_t:  (nx, ny, nz)   vol_t[i][j][k]: Z contiguous
 
 These are the plain versions of the port: they run on whatever device
-their tensors lie on, serve as the registry's ``algorithm1_mp`` and
-``subline_batch_mp`` variants, and are the oracles the CUDA kernel is
-held against. Ported rungs of the paper's ladder (Table 2):
+their tensors lie on, serve as the registry's ``_mp`` variants, and are
+the oracles the CUDA kernel is held against. The paper's ladder
+(Table 2):
 
+    transpose               O1: layouts only
+    share                   O1+O2: hoist F/W/X out of the k loop
+    symmetry                O1+O2+O3: y for half the k range, mirror the rest
     subline                 O1+O2+O4: two-stage interpolation via sMem
     subline_batch           O1+O2+O4+O5: no O3 mirror (slab-safe)
     subline_symmetry_batch  O1..O5 = the paper's Algorithm 1
@@ -33,6 +36,11 @@ def transpose_projections(img: torch.Tensor) -> torch.Tensor:
 def volume_to_native(vol_t: torch.Tensor) -> torch.Tensor:
     """(nx, ny, nz) -> (nz, ny, nx), as a view."""
     return vol_t.permute(2, 1, 0)
+
+
+def volume_to_transposed(vol: torch.Tensor) -> torch.Tensor:
+    """(nz, ny, nx) -> (nx, ny, nz), as a view."""
+    return vol.permute(2, 1, 0)
 
 
 # --------------------------------------------------------------------------
@@ -98,6 +106,92 @@ def _subline_buffer(img_ts: torch.Tensor, x: torch.Tensor, nw: int):
     return col0 * (1.0 - dx)[..., None] + col1 * dx[..., None], x_valid
 
 
+def _gather_corners(img_ts: torch.Tensor, ixc: torch.Tensor,
+                    iyc: torch.Tensor):
+    """The four bilinear corners ``img_ts[ixc(+1), iyc(+1)]`` of a
+    transposed projection, at broadcastable integer indices."""
+    nh = img_ts.shape[1]
+    flat = img_ts.reshape(-1)
+    base = ixc * nh + iyc
+    return flat[base], flat[base + nh], flat[base + 1], flat[base + nh + 1]
+
+
+def _clamped(v: torch.Tensor, hi: int):
+    """floor(v) as an index, its fraction, and whether 0 <= floor(v) <=
+    hi; invalid entries index 0 (their values are masked by the caller)."""
+    v0 = torch.floor(v)
+    valid = (v0 >= 0) & (v0 <= hi)
+    return torch.where(valid, v0, 0.0).long(), v - v0, valid
+
+
+# --------------------------------------------------------------------------
+# O1: transpose only -- per-voxel math identical to the baseline
+# --------------------------------------------------------------------------
+
+def _bp_transpose_single(img_ts, mat_s, vol_shape_xyz):
+    ni, nj, nk = vol_shape_xyz
+    nw, nh = img_ts.shape
+    dev = img_ts.device
+    i = torch.arange(ni, dtype=torch.float32, device=dev)[:, None, None]
+    j = torch.arange(nj, dtype=torch.float32, device=dev)[None, :, None]
+    k = torch.arange(nk, dtype=torch.float32, device=dev)[None, None, :]
+    z = mat_s[2, 0] * i + mat_s[2, 1] * j + mat_s[2, 2] * k + mat_s[2, 3]
+    f = 1.0 / z
+    x = (mat_s[0, 0] * i + mat_s[0, 1] * j + mat_s[0, 2] * k
+         + mat_s[0, 3]) * f
+    y = (mat_s[1, 0] * i + mat_s[1, 1] * j + mat_s[1, 2] * k
+         + mat_s[1, 3]) * f
+    # bilinear on the transposed image: img_t[x][y]
+    ixc, dx, x_valid = _clamped(x, nw - 2)
+    iyc, dy, y_valid = _clamped(y, nh - 2)
+    v00, v10, v01, v11 = _gather_corners(img_ts, ixc, iyc)
+    s0 = v00 * (1.0 - dx) + v10 * dx
+    s1 = v01 * (1.0 - dx) + v11 * dx
+    val = s0 * (1.0 - dy) + s1 * dy
+    return torch.where(x_valid & y_valid & (z > 0), val * f * f, 0.0)
+
+
+def bp_transpose(img_t, mat, vol_shape_xyz):
+    shape = tuple(vol_shape_xyz)
+    return _nb_batched(lambda im, mm: _bp_transpose_single(im, mm, shape),
+                       img_t, mat, shape, 1)
+
+
+# --------------------------------------------------------------------------
+# O1+O2: hoisting F/W/X
+# --------------------------------------------------------------------------
+
+def _four_corner_interp(img_ts, x, y):
+    """Per-point bilinear interpolation at hoisted columns ``x`` (ni, nj)
+    and rows ``y`` (ni, nj, nk): four corner gathers per sample. Returns
+    (vals, x_valid (ni, nj), y_valid (ni, nj, nk))."""
+    nw, nh = img_ts.shape
+    ixc, dx, x_valid = _clamped(x, nw - 2)
+    iyc, dy, y_valid = _clamped(y, nh - 2)
+    v00, v10, v01, v11 = _gather_corners(img_ts, ixc[..., None], iyc)
+    s0 = v00 * (1.0 - dx)[..., None] + v10 * dx[..., None]
+    s1 = v01 * (1.0 - dx)[..., None] + v11 * dx[..., None]
+    return s0 * (1.0 - dy) + s1 * dy, x_valid, y_valid
+
+
+def _bp_share_single(img_ts, mat_s, vol_shape_xyz):
+    ni, nj, nk = vol_shape_xyz
+    f, w, x, z = hoisted_fwx(mat_s, ni, nj)
+    a, b = _y_coeffs(mat_s, f, ni, nj)
+    k = torch.arange(nk, dtype=torch.float32, device=img_ts.device)
+    y = a[..., None] + b[..., None] * k           # (ni, nj, nk)
+    # interpolation still per point (no sub-line yet): four corners
+    val, x_valid, y_valid = _four_corner_interp(img_ts, x, y)
+    ok = (x_valid & (z > 0))[..., None] & y_valid
+    return torch.where(ok, val * w[..., None], 0.0)
+
+
+def bp_share(img_t, mat, vol_shape_xyz):
+    shape = tuple(vol_shape_xyz)
+    return _nb_batched(lambda im, mm: _bp_share_single(im, mm, shape),
+                       img_t, mat, shape, 1)
+
+
 # --------------------------------------------------------------------------
 # O1+O2+O4: subline interpolation
 # --------------------------------------------------------------------------
@@ -115,13 +209,20 @@ def _bp_subline_single(img_ts, mat_s, vol_shape_xyz):
     return torch.where(ok, val * w[..., None], 0.0)
 
 
+def bp_subline(img_t, mat, vol_shape_xyz):
+    shape = tuple(vol_shape_xyz)
+    return _nb_batched(lambda im, mm: _bp_subline_single(im, mm, shape),
+                       img_t, mat, shape, 1)
+
+
 def _nb_batched(single_fn, img_t, mat, vol_shape_xyz, nb):
     """Shared O5 scaffold: a loop over nb-batches of projections. Within
     a batch the partial sum accumulates apart from the volume, which is
     updated ONCE per batch (the 1/nb write-traffic reduction of §3.1.3).
     np must be divisible by nb (pad upstream via
-    tiling.pad_projection_batch). The sums are taken in place, so peak
-    memory stays one per-projection working set."""
+    tiling.pad_projection_batch); nb = 1 is the per-projection loop of
+    the unbatched rungs. The sums are taken in place, so peak memory stays
+    one per-projection working set."""
     n_proj = img_t.shape[0]
     if n_proj % nb:
         raise ValueError(f"np={n_proj} not divisible by nb={nb}")
@@ -148,10 +249,10 @@ def bp_subline_batch(img_t, mat, vol_shape_xyz, nb: int = 8):
 
 
 # --------------------------------------------------------------------------
-# O1..O5: the paper's Algorithm 1 (subline + symmetry + nb batching)
+# O1+O2+O3(+O4): symmetry -- y for k < nz/2 only, mirror the rest
 # --------------------------------------------------------------------------
 
-def _bp_symmetry_single(img_ts, mat_s, vol_shape_xyz):
+def _bp_symmetry_single(img_ts, mat_s, vol_shape_xyz, *, use_subline: bool):
     ni, nj, nk = vol_shape_xyz
     # Uneven half-split: k in [0, khp) computed directly (including the
     # self-mirrored middle plane when nk is odd), k in [khp, nk) filled
@@ -168,11 +269,25 @@ def _bp_symmetry_single(img_ts, mat_s, vol_shape_xyz):
     k = torch.arange(nk, dtype=torch.float32, device=img_ts.device)
     direct = k < khp
     y = torch.where(direct, a[..., None], a_m[..., None]) + b[..., None] * k
-    sm, x_valid = _subline_buffer(img_ts, x, nw)
-    val, y_valid = _interp_column(sm, y, nh)
+    if use_subline:
+        sm, x_valid = _subline_buffer(img_ts, x, nw)
+        val, y_valid = _interp_column(sm, y, nh)
+    else:       # per-point four-corner gathers, shared x columns
+        val, x_valid, y_valid = _four_corner_interp(img_ts, x, y)
     ok = (x_valid & (z > 0))[..., None] & y_valid
     return torch.where(ok, val * w[..., None], 0.0)
 
+
+def bp_symmetry(img_t, mat, vol_shape_xyz):
+    shape = tuple(vol_shape_xyz)
+    return _nb_batched(
+        lambda im, mm: _bp_symmetry_single(im, mm, shape, use_subline=False),
+        img_t, mat, shape, 1)
+
+
+# --------------------------------------------------------------------------
+# O1..O5: the paper's Algorithm 1 (subline + symmetry + nb batching)
+# --------------------------------------------------------------------------
 
 def bp_subline_symmetry_batch(img_t, mat, vol_shape_xyz, nb: int = 8):
     """Paper Algorithm 1 semantics in plain PyTorch.
@@ -182,5 +297,17 @@ def bp_subline_symmetry_batch(img_t, mat, vol_shape_xyz, nb: int = 8):
     updated ONCE per batch (the 1/nb write-traffic reduction of §3.1.3).
     """
     shape = tuple(vol_shape_xyz)
-    return _nb_batched(lambda im, mm: _bp_symmetry_single(im, mm, shape),
-                       img_t, mat, shape, nb)
+    return _nb_batched(
+        lambda im, mm: _bp_symmetry_single(im, mm, shape, use_subline=True),
+        img_t, mat, shape, nb)
+
+
+def bp_subline_symmetry_scan(img_t, mat, vol_shape_xyz):
+    """Algorithm 1 semantics with SEQUENTIAL per-projection accumulation:
+    the same math as :func:`bp_subline_symmetry_batch`, with the volume
+    updated after every projection (peak temporaries one per-projection
+    working set). The multi-device path uses it."""
+    shape = tuple(vol_shape_xyz)
+    return _nb_batched(
+        lambda im, mm: _bp_symmetry_single(im, mm, shape, use_subline=True),
+        img_t, mat, shape, 1)

@@ -71,17 +71,23 @@ def fdk_reconstruct(projections, geom: CTGeometry,
     selects nothing: only the device chooses between a kernel and its
     plain version. All parameter validation happens in the planner.
 
-    ``tiling``, ``memory_budget``, ``tuning``, ``service``, ``devices``,
-    ``pipeline="async"``, ``precision="bf16"`` and ``variant="auto"``
-    raise ``NotImplementedError``: they wait in ROADMAP.md.
+    ``tiling`` ((ti, tj, tk), or "auto" with a ``memory_budget``) runs
+    the plan's tile steps: (i, j)-tiles x Z-slabs with translated
+    matrices, mirror-paired for the symmetry variants; ``memory_budget``
+    (bytes) picks the tile shape and the chunk-major loop. A tiled plan
+    accumulates on the host unless ``out="device"``. ``pipeline="async"``
+    overlaps the host flush of one step with the next step's kernels
+    (bit-identical to ``"sync"``).
+
+    ``tuning``, ``service``, ``devices``, ``precision="bf16"`` and
+    ``variant="auto"`` raise ``NotImplementedError``: they wait in
+    ROADMAP.md.
     """
     from repro_torch.runtime.executor import PlanExecutor
 
-    for name, value, item in (("service", service, "10"),
-                              ("devices", devices, "11"),
-                              ("tuning", tuning, "9"),
-                              ("tiling", tiling, "7"),
-                              ("memory_budget", memory_budget, "7")):
+    for name, value, item in (("service", service, "3"),
+                              ("devices", devices, "4"),
+                              ("tuning", tuning, "2")):
         if value is not None:
             raise NotImplementedError(
                 f"{name}= is not ported to repro_torch yet (ROADMAP.md "

@@ -174,3 +174,45 @@ def projection_matrices(geom: CTGeometry, device=None) -> torch.Tensor:
     dev = resolve_device(device)
     mats = np.stack([projection_matrix(geom, t) for t in geom.angles])
     return torch.from_numpy(mats).to(dev)
+
+
+def source_positions(geom: CTGeometry) -> np.ndarray:
+    """World-space source positions per view, shape (n_proj, 3)."""
+    t = geom.angles
+    return np.stack(
+        [geom.sad * np.cos(t), geom.sad * np.sin(t), np.zeros_like(t)], axis=-1
+    ).astype(np.float32)
+
+
+def detector_frame(geom: CTGeometry, theta: float):
+    """(origin, u_hat*du, v_hat*dv) of the detector plane in world space.
+
+    ``origin`` is the world position of detector pixel (0, 0) (x_pix=0,
+    y_pix=0); stepping one pixel in x_pix adds ``ustep``; one pixel in
+    y_pix adds ``vstep``. Used by the ray-driven forward projector.
+    """
+    d, D = geom.sad, geom.sdd
+    du, dv = geom.det_spacing
+    ct, st = math.cos(theta), math.sin(theta)
+    src = np.array([d * ct, d * st, 0.0])
+    axis_dir = -np.array([ct, st, 0.0])  # source -> rotation axis
+    center = src + D * axis_dir  # detector center (pixel (cu, cv))
+    u_hat = np.array([-st, ct, 0.0])
+    v_hat = np.array([0.0, 0.0, 1.0])
+    cu = (geom.nw - 1) / 2.0
+    cv = (geom.nh - 1) / 2.0
+    origin = center - cu * du * u_hat - cv * dv * v_hat
+    return (
+        origin.astype(np.float32),
+        (du * u_hat).astype(np.float32),
+        (dv * v_hat).astype(np.float32),
+    )
+
+
+def voxel_world_coords(geom: CTGeometry):
+    """1-D world coordinate arrays (xs, ys, zs) of voxel centers."""
+    sx, sy, sz = geom.voxel_size
+    xs = (np.arange(geom.nx) - (geom.nx - 1) / 2.0) * sx
+    ys = (np.arange(geom.ny) - (geom.ny - 1) / 2.0) * sy
+    zs = (np.arange(geom.nz) - (geom.nz - 1) / 2.0) * sz
+    return xs.astype(np.float32), ys.astype(np.float32), zs.astype(np.float32)

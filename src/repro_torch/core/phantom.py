@@ -44,3 +44,10 @@ def shepp_logan_3d(nx: int, ny: int | None = None, nz: int | None = None,
         inside = (xr / a) ** 2 + (yr / b) ** 2 + (zr / c) ** 2 <= 1.0
         vol += val * inside
     return vol.astype(dtype)
+
+
+def ball_phantom(n: int, radius: float = 0.5, dtype=np.float32) -> np.ndarray:
+    """A single centered ball: analytically checkable forward projections."""
+    xs = np.linspace(-1.0, 1.0, n)
+    Z, Y, X = np.meshgrid(xs, xs, xs, indexing="ij")
+    return (X ** 2 + Y ** 2 + Z ** 2 <= radius ** 2).astype(dtype)

@@ -11,10 +11,16 @@ Every kernel callable has the uniform signature
 
     fn(img_t, mat, vol_shape_xyz, **opts) -> vol_t (nx, ny, nz)
 
-operating on transposed layouts, on the device its tensors lie on.
-Ported so far (paper Table 2 naming; ``_mp`` = plain PyTorch, ``_pl`` =
-the hand-written CUDA kernel):
+operating on transposed layouts, on the device its tensors lie on. The
+RTK baseline is exposed through the same signature by transposing at the
+edges. The variants (paper Table 2 naming; ``_mp`` = plain PyTorch,
+``_pl`` = the hand-written CUDA kernel):
 
+    baseline         RTK Listing 1 (native layouts inside)
+    transpose_mp     O1
+    share_mp         O1+O2
+    symmetry_mp      O1+O2+O3
+    subline_mp       O1+O2+O4
     subline_batch_mp O1+O2+O4+O5 (no O3: exact on any Z-slab; the
                      planner's slab-safe fallback)
     algorithm1_mp    O1..O5 (paper Algorithm 1; nb batching)
@@ -25,8 +31,6 @@ the hand-written CUDA kernel):
     banded_pl        CUDA: subline_pl reading each tile's band of
                      detector columns, the banded instance of
                      kernels/csrc/backproject_subline.cu
-
-The other variants of the JAX package wait in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -35,6 +39,30 @@ import dataclasses
 from typing import Callable, Dict, FrozenSet, Mapping, Optional, Tuple
 
 from . import backproject as bp
+from . import baseline as bl
+
+
+def _baseline_adapter(img_t, mat, vol_shape_xyz, **_):
+    img = bp.transpose_projections(img_t)  # back to (np, nh, nw)
+    ni, nj, nk = vol_shape_xyz
+    vol = bl.backproject_rtk(img, mat, (nk, nj, ni))
+    return bp.volume_to_transposed(vol).contiguous()
+
+
+def _transpose(img_t, mat, vol_shape_xyz, **_):
+    return bp.bp_transpose(img_t, mat, vol_shape_xyz)
+
+
+def _share(img_t, mat, vol_shape_xyz, **_):
+    return bp.bp_share(img_t, mat, vol_shape_xyz)
+
+
+def _symmetry(img_t, mat, vol_shape_xyz, **_):
+    return bp.bp_symmetry(img_t, mat, vol_shape_xyz)
+
+
+def _subline(img_t, mat, vol_shape_xyz, **_):
+    return bp.bp_subline(img_t, mat, vol_shape_xyz)
 
 
 def _algorithm1(img_t, mat, vol_shape_xyz, nb: int = 8, **_):
@@ -90,8 +118,9 @@ class KernelSpec:
         the same remaining optimizations: what the planner schedules on
         a Z-slab that is neither volume-centered nor mirror-paired.
         ``None`` for symmetry-free kernels (they are their own fallback).
-    backend : "torch" (plain PyTorch) | "cuda" (a hand-written kernel;
-        its wrapper runs the kernel's plain version on CPU tensors).
+    backend : "reference" (the RTK baseline) | "torch" (plain PyTorch) |
+        "cuda" (a hand-written kernel; its wrapper runs the kernel's
+        plain version on CPU tensors).
     proj_loop : whether the kernel supports the fused multi-batch mode:
         an in-kernel loop that stages ``nb`` projections per step. The
         planner defaults the ``proj_loop`` option ON for specs that
@@ -120,6 +149,13 @@ class KernelSpec:
 _PL_OPTS = frozenset({"nb", "interpret", "block", "proj_loop"})
 
 REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
+    KernelSpec("baseline", _baseline_adapter, (), backend="reference"),
+    KernelSpec("transpose_mp", _transpose, ("transpose",)),
+    KernelSpec("share_mp", _share, ("transpose", "share")),
+    KernelSpec("symmetry_mp", _symmetry,
+               ("transpose", "share", "symmetry"),
+               slab_safe_fallback="share_mp"),
+    KernelSpec("subline_mp", _subline, ("transpose", "share", "subline")),
     KernelSpec("subline_batch_mp", _subline_batch,
                ("transpose", "share", "subline", "batch"),
                options=frozenset({"nb"})),
@@ -150,8 +186,7 @@ REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
 )}
 
 #: variants of the JAX package that this package does not carry yet
-UNPORTED = ("baseline", "transpose_mp", "share_mp", "symmetry_mp",
-            "subline_mp")
+UNPORTED = ()
 
 
 def _validate_registry() -> None:
@@ -184,11 +219,6 @@ _validate_registry()
 
 
 def get_spec(name: str) -> KernelSpec:
-    if name in UNPORTED:
-        raise KeyError(
-            f"back-projection variant {name!r} is not ported to repro_torch "
-            f"yet (see ROADMAP.md, queue 1 item 2); have "
-            f"{sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(f"unknown back-projection variant {name!r}; "
                        f"have {sorted(REGISTRY)}")

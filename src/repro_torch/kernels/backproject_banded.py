@@ -193,7 +193,7 @@ def _launch(img_b, mat, band, shape, block, bw, nw, group):
     lib = _lib()
     ni, nj, nz = shape
     n_proj, n_bands, _, nh = img_b.shape
-    plan = ks.launch_plan(shape, nh)
+    plan = ks.launch_plan(shape, nh, ks.plane_rows(mat, shape))
     out = torch.empty(shape, dtype=torch.float32, device=img_b.device)
     with torch.cuda.device(img_b.device):
         stream = torch.cuda.current_stream(img_b.device).cuda_stream

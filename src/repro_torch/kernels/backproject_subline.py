@@ -27,7 +27,9 @@ columns per line per view through L2 (about 550 GB at P5). What is left is
 instruction issue: about 20 instructions a sample in stage 1 and stage 2,
 against the cost model's 8 FLOP. :func:`launch_plan` shortens the k
 chunk where the detector is finer than the voxels, so that a chunk's rows
-still fit a window slot (P4, P7, P8). A window wider than the kernel's 16
+still fit a window slot (P4, P7, P8); it reads the rows a plane spans
+from the launch's matrices, so a Z-slab of a tiled walk gets the plan of
+the volume it belongs to. A window wider than the kernel's 16
 columns (those problems, oblique geometries) or still taller than the slot
 is read from global memory instead, for that tile and view.
 
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Dict, Sequence
 
 import torch
@@ -220,22 +223,38 @@ class LaunchPlan:
     win_rows: int        # detector rows a window slot holds (of 16 columns)
 
 
-def launch_plan(vol_shape_xyz, nh: int) -> LaunchPlan:
+def plane_rows(mat: torch.Tensor, vol_shape_xyz) -> float:
+    """The detector rows one k plane spans at the centre line of the box,
+    the most over the views: |M[1][2]| / z there (y is affine in k with
+    slope M[1][2] / z, V being parallel to Z). It reads the matrices the
+    launch is given, translated to a sub-box or not, so a Z-slab sees the
+    magnification of the volume it belongs to, whatever its depth. One
+    value is read back from the device."""
+    ni, nj, _ = (int(v) for v in vol_shape_xyz)
+    z = (mat[:, 2, 0] * ((ni - 1) / 2.0) + mat[:, 2, 1] * ((nj - 1) / 2.0)
+         + mat[:, 2, 3])
+    rows = torch.where(z > 0, mat[:, 1, 2].abs() / z, 0.0)
+    return float(rows.max())
+
+
+def launch_plan(vol_shape_xyz, nh: int, rows=None) -> LaunchPlan:
     """The tiled kernel's launch for a volume and detector height.
 
     k is split into chunks of 32*kpt direct planes with their O3 mirrors,
     kpt the smallest of 1, 2, 4 whose chunk holds the direct half, 4 past
     that (the fewer chunks, the less per-view work repeats; 64 sums a lane
-    at most). A plane spans about ``m = ceil(nh / nz)`` detector rows where
-    the detector frames the volume (``standard_geometry``; P4, P7, P8 have
-    m = 2, 4, 2), so kpt is halved while a chunk would span more than 128
-    rows, and a window slot holds the chunk's direct and mirrored rows at
-    m rows a plane (4 at most), with 8 rows of margin each. A window that
-    still does not fit takes the kernel's global-read paths.
+    at most). A plane spans ``m`` detector rows: ``ceil(rows)``, the rows
+    a launch's matrices give (:func:`plane_rows`), or without them ``m =
+    ceil(nh / nz)``, which holds where the detector frames the volume
+    (``standard_geometry``; P4, P7, P8 have m = 2, 4, 2; on P1-P10 the
+    two rules give the same plan). kpt is halved while a chunk would span more than 128 rows, and
+    a window slot holds the chunk's direct and mirrored rows at m rows a
+    plane (4 at most), with 8 rows of margin each. A window that still
+    does not fit takes the kernel's global-read paths.
     """
     ni, nj, nz = (int(v) for v in vol_shape_xyz)
     khp = nz - nz // 2
-    m = -(-nh // nz)
+    m = -(-nh // nz) if rows is None else max(1, math.ceil(rows))
     kpt = 1 if khp <= 32 else 2 if khp <= 64 else 4
     while kpt > 1 and 32 * kpt * m > 128:
         kpt //= 2
@@ -254,7 +273,7 @@ def launch_tile(img_t, mat, shape, form: int, name: str) -> torch.Tensor:
     lib = _lib()
     ni, nj, nz = shape
     n_proj, nw, nh = img_t.shape
-    plan = launch_plan(shape, nh)
+    plan = launch_plan(shape, nh, plane_rows(mat, shape))
     out = torch.empty(shape, dtype=torch.float32, device=img_t.device)
     with torch.cuda.device(img_t.device):
         stream = torch.cuda.current_stream(img_t.device).cuda_stream

@@ -12,22 +12,30 @@
     introspectable (``cache.stats()``). A module-level default cache
     persists across executors.
 
-  * :class:`PlanExecutor`: the **execute** stage, for the untiled plan on
-    one device. Under ``schedule="step"`` (the default) every chunk is
-    filtered once, the filtered chunks are stacked on the device, and one
-    loop over the chunks accumulates the volume there: one kernel launch
-    per chunk, one host crossing at most. ``schedule="chunk"`` filters and
-    back-projects chunk by chunk, so only one filtered chunk is resident;
-    with ``out="host"`` each chunk's contribution crosses to a host
-    accumulator.
+  * :class:`PlanExecutor`: the **execute** stage, on one device. It walks
+    the plan's tile steps (sub-boxes of the volume with translated
+    matrices; mirror-paired Z-slabs run at virtual depth ``2*tk`` and
+    write two slabs). Under ``schedule="step"`` (the default) every
+    chunk is filtered once, the filtered chunks are stacked on the
+    device, and per step one loop over the chunks carries the step's
+    accumulator there: one kernel launch per step and chunk, one host
+    crossing per step. ``schedule="chunk"`` filters and back-projects
+    chunk by chunk, so only one filtered chunk is resident, and adds
+    every step's piece of every chunk into the volume. ``out="device"``
+    adds the pieces into a volume on the card in place; ``out="host"``
+    into a numpy volume, so the volume may exceed the card's memory.
+    ``pipeline="async"`` moves the host adds onto a flusher thread
+    (:class:`_AsyncFlushQueue`): a side stream copies each step's pieces
+    into pinned host buffers while the next step runs.
 
-The tiled walks, the async flush pipeline, request batching, streaming
-ingest and the multi-device fleet wait in ROADMAP.md and raise
-``NotImplementedError`` here.
+Request batching, streaming ingest, the solvers, bf16 and the
+multi-device fleet wait in ROADMAP.md and raise ``NotImplementedError``
+here.
 """
 
 from __future__ import annotations
 
+import queue
 import threading
 from typing import Callable, Dict, Optional, Tuple
 
@@ -39,10 +47,13 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import backproject as bp
 from repro_torch.core.filtering import fdk_filter_chunk
 from repro_torch.core.geometry import CTGeometry, projection_matrices
-from repro_torch.core.tiling import pad_projection_batch, plan_proj_chunks
+from repro_torch.core.tiling import (
+    TileSpec, pad_projection_batch, plan_proj_chunks, translate_matrices,
+)
 from repro_torch.core.variants import get_spec
 from repro_torch.runtime.planner import (
-    ReconPlan, StepMajorSchedule, build_step_major,
+    PlanStep, ReconPlan, StepMajorSchedule, build_step_major,
+    resolve_tile_variant,
 )
 
 
@@ -59,7 +70,7 @@ def _unported(what: str, item: str) -> NotImplementedError:
 def _plan_dtype(plan: ReconPlan) -> str:
     """ProgramCache dtype key of a plan's precision axis."""
     if plan.precision != "f32":
-        raise _unported(f"precision={plan.precision!r}", "8")
+        raise _unported(f"precision={plan.precision!r}", "1")
     return "float32"
 
 
@@ -187,6 +198,96 @@ def _stack_chunks(img_p: torch.Tensor, mat_p: torch.Tensor,
     return img_s, mat_s
 
 
+def _add_host(vol: np.ndarray, sl, piece: torch.Tensor) -> None:
+    """``vol[sl] += piece`` for a CPU tensor ``piece``, on torch's CPU
+    threads: float32 adds, the same bits as numpy's one-thread add."""
+    torch.from_numpy(vol)[sl].add_(piece)
+
+
+class _AsyncFlushQueue:
+    """Depth-bounded device->host flush pipeline: step N's host adds
+    overlap step N+1's kernels.
+
+    The dispatching thread hands over one step's ``(volume slices,
+    device piece)`` writes right after launching the step and moves on.
+    For CUDA pieces, :meth:`put` records an event on the compute stream
+    after the step's launch; a side stream waits on it, copies each piece
+    into a pinned host buffer (``non_blocking``) and records its own
+    event. Each piece is marked as used by the side stream
+    (``record_stream``), so the caching allocator does not hand its
+    memory to a later step while the copy still reads it. A single
+    flusher thread dequeues in FIFO order, waits on the copy's event,
+    the only place the pipeline waits on the card, and adds into the
+    host volume. ``depth`` bounds how many steps may be queued; a full
+    queue holds back the dispatcher. One thread writes the host volume,
+    in the order the sync walk adds, so the result is bit-identical.
+    """
+
+    def __init__(self, vol: np.ndarray, device: torch.device,
+                 depth: int = 2):
+        self._vol = vol
+        self._device = device
+        self._copy = (torch.cuda.Stream(device) if device.type == "cuda"
+                      else None)
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._drain, name="recon-flush", daemon=True)
+        self._thread.start()
+
+    def _stage(self, writes):
+        """Start the host copies of one step's writes; returns the host
+        writes and the event that marks them done (None on the CPU,
+        where the pieces are host memory already)."""
+        if self._copy is None:
+            return writes, None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self._device))
+        staged = []
+        with torch.cuda.stream(self._copy):
+            self._copy.wait_event(ready)
+            for sl, piece in writes:
+                host = torch.empty(tuple(piece.shape), dtype=piece.dtype,
+                                   pin_memory=True)
+                host.copy_(piece, non_blocking=True)
+                piece.record_stream(self._copy)
+                staged.append((sl, host))
+            copied = torch.cuda.Event()
+            copied.record(self._copy)
+        return tuple(staged), copied
+
+    def _drain(self) -> None:
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                if self._error is None:   # keep consuming after a failure
+                    writes, copied = item
+                    if copied is not None:
+                        copied.synchronize()
+                    for sl, host in writes:
+                        _add_host(self._vol, sl, host)
+            except BaseException as exc:   # surfaced at put()/close()
+                self._error = exc
+            finally:
+                self._q.task_done()
+
+    def put(self, writes) -> None:
+        """Enqueue one step's writes; blocks only when ``depth`` steps
+        are already queued (backpressure, not a device sync)."""
+        if self._error is not None:
+            raise self._error
+        self._q.put(self._stage(writes))
+
+    def close(self) -> None:
+        """Drain the queue, join the flusher, re-raise any failure."""
+        self._q.put(None)
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+
+
 class _FilteredChunkProducer:
     """Filter-once projection-chunk source for ``reconstruct``.
 
@@ -241,39 +342,45 @@ class _FilteredChunkProducer:
 # --------------------------------------------------------------------------
 
 class PlanExecutor:
-    """Executes the untiled :class:`ReconPlan` on one device.
+    """Executes a :class:`ReconPlan` on one device.
 
     One executor serves any number of calls; programs come from the
     (shared) :class:`ProgramCache`. The loop ORDER follows
     ``plan.schedule``: step-major (filter every chunk once, stack, one
-    device-resident accumulation over the chunks) by default, chunk-major
-    on request. ``device=None`` means the CUDA card; without one, pass
-    ``device="cpu"`` to run the plain PyTorch path.
+    device-resident accumulation per step over the chunks) by default,
+    chunk-major on request. ``device=None`` means the CUDA card; without
+    one, pass ``device="cpu"`` to run the plain PyTorch path.
+
+    ``pipeline`` selects the host flush: ``"sync"`` (in the dispatching
+    thread, step N-1's pieces after step N's launch) or ``"async"`` (an
+    :class:`_AsyncFlushQueue`: a side stream and a flusher thread, at
+    most ``pipeline_depth`` steps queued). Async changes only WHEN the
+    host adds happen, never their order, so the output is bit-identical;
+    it engages where the plan accumulates on the host.
     """
 
     def __init__(self, geom: CTGeometry, plan: ReconPlan,
                  cache: Optional[ProgramCache] = None, *,
-                 pipeline: str = "sync", fleet=None, device=None):
+                 pipeline: str = "sync", pipeline_depth: int = 2,
+                 fleet=None, device=None):
         if pipeline not in ("sync", "async"):
             raise ValueError(
                 f"pipeline must be 'sync' or 'async', got {pipeline!r}")
-        if pipeline == "async":
-            raise _unported("pipeline='async'", "7")
         if fleet is not None:
-            raise _unported("fleet execution", "11")
+            raise _unported("fleet execution", "4")
         self.device = resolve_device(device)
         self.geom = geom
         self.plan = plan
         self._dtype = _plan_dtype(plan)
-        if not self._single_full_call():
-            raise _unported("a tiled plan", "7")
         if plan.ingest != "offline":
-            raise _unported("ingest='stream'", "10")
+            raise _unported("ingest='stream'", "3")
         if plan.solver != "none":
-            raise _unported(f"solver={plan.solver!r}", "8")
+            raise _unported(f"solver={plan.solver!r}", "1")
         if plan.request_batch != 1:
-            raise _unported("request batching", "10")
+            raise _unported("request batching", "3")
         self.cache = cache if cache is not None else default_program_cache()
+        self.pipeline = pipeline
+        self.pipeline_depth = int(pipeline_depth)
 
     # ---- compile-stage access -------------------------------------------
 
@@ -303,6 +410,21 @@ class PlanExecutor:
 
     # ---- execute-stage helpers ------------------------------------------
 
+    def _alloc(self):
+        """A zero volume accumulator: numpy for ``out="host"``, else a
+        tensor on this executor's device."""
+        shape = self.plan.vol_shape_xyz
+        if self.plan.out == "host":
+            return np.zeros(shape, np.float32)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    @staticmethod
+    def _translated(mats: torch.Tensor, step: PlanStep) -> torch.Tensor:
+        if (step.i0, step.j0, step.k_off) == (0, 0, 0):
+            return mats
+        return translate_matrices(mats, float(step.i0), float(step.j0),
+                                  float(step.k_off))
+
     def _single_full_call(self) -> bool:
         """One unpaired step covering the whole volume (the untiled plan)."""
         steps = self.plan.steps
@@ -323,6 +445,12 @@ class PlanExecutor:
             plan.chunk_size if plan.streams_projections else None)
         return chunks
 
+    def _data_step_major(self, chunks) -> StepMajorSchedule:
+        """Step-major schedule over a DATA-dependent chunk list (the
+        plan contributes the steps, the input contributes the extent)."""
+        return build_step_major(self.plan.steps, chunks,
+                                chunks[0][1] - chunks[0][0])
+
     def _as_input(self, name: str, x) -> torch.Tensor:
         """A float32 tensor on this executor's device: numpy arrays are
         copied there, tensors must already lie there."""
@@ -334,41 +462,121 @@ class PlanExecutor:
         check_on_device(name, x, self.device)
         return x.to(torch.float32)
 
-    def _chunk_inputs(self, projections: torch.Tensor, mat_p: torch.Tensor,
-                      s0: int, s1: int):
-        """Filter + transpose the raw rows of one padded chunk [s0, s1)."""
-        plan = self.plan
-        raw = projections[s0:min(s1, plan.n_proj)]
-        img_c = bp.transpose_projections(
-            fdk_filter_chunk(raw, self.geom, plan.n_proj))
-        # tail chunk: zero images pair with the repeated matrices
-        return _pad_rows(img_c, mat_p[s0:s1], s1 - s0)
+    @staticmethod
+    def _step_writes(step: PlanStep, out: torch.Tensor):
+        """(volume slices, device piece) pairs of one step's output."""
+        isl = slice(step.i0, step.i0 + step.ni)
+        jsl = slice(step.j0, step.j0 + step.nj)
+        return tuple(((isl, jsl, slice(w.k0, w.k0 + w.nk)),
+                      out[..., w.lo:w.hi]) for w in step.writes)
 
-    def _run_chunks(self, chunk_inputs, n_chunks: int):
-        """Chunk-major: one program call per chunk, accumulated on the
-        device (``out="device"``) or, chunk by chunk, on the host."""
-        step = self.plan.steps[0]
-        prog = self._program(step.variant, step.call_shape)
-        host = self.plan.out == "host"
-        acc = (np.zeros(self.plan.vol_shape_xyz, np.float32) if host
-               else None)
-        for c in range(n_chunks):
-            part = prog(*chunk_inputs(c))
-            if host:
-                acc += part.cpu().numpy()
-            elif acc is None:
-                acc = part
-            else:
-                acc += part
-        return acc
+    def _open_flush(self, vol) -> Optional[_AsyncFlushQueue]:
+        """The async flusher when this walk pipelines host flushes
+        (``pipeline="async"`` + host placement), else None."""
+        if self.pipeline == "async" and self.plan.out == "host":
+            return _AsyncFlushQueue(vol, self.device,
+                                    depth=self.pipeline_depth)
+        return None
 
-    def _run_stacked(self, img_s, mat_s, sched: StepMajorSchedule):
-        """Step-major: the chunk loop on the device, one host crossing
-        at most."""
-        step = self.plan.steps[0]
-        acc = self._scan_program(step.variant, step.call_shape,
-                                 sched)(img_s, mat_s)
-        return acc.cpu().numpy() if self.plan.out == "host" else acc
+    @staticmethod
+    def _flush_host(vol: np.ndarray, writes) -> None:
+        for sl, piece in writes:
+            _add_host(vol, sl, piece.cpu())
+
+    def _place(self, vol, writes, flush, pending):
+        """Land one step's writes; returns the writes still pending.
+
+        On the card the pieces add into the device volume in place. On
+        the host they go to the async flusher, or (sync) the previous
+        step's pieces are added now, after this step's launch."""
+        if self.plan.out == "device":
+            for (i_s, j_s, k_s), piece in writes:
+                vol[i_s, j_s, k_s] += piece
+            return ()
+        if flush is not None:
+            flush.put(writes)
+            return ()
+        self._flush_host(vol, pending)
+        return writes
+
+    def _backproject_chunk(self, vol, img_c: torch.Tensor,
+                           mat_c: torch.Tensor,
+                           flush: Optional[_AsyncFlushQueue] = None):
+        """Chunk-major: accumulate ONE projection chunk, all steps.
+
+        ``flush`` (an open :class:`_AsyncFlushQueue` spanning the whole
+        chunk loop) moves the host adds onto the flusher thread in the
+        sequential flush order, so the output stays bit-identical.
+        """
+        pending = ()
+        for step in self.plan.steps:
+            prog = self._program(step.variant, step.call_shape)
+            out = prog(img_c, self._translated(mat_c, step))
+            pending = self._place(vol, self._step_writes(step, out), flush,
+                                  pending)
+        if self.plan.out == "host":
+            self._flush_host(vol, pending)
+        return vol
+
+    def _execute_step_major(self, vol, img_s: torch.Tensor,
+                            mat_s: torch.Tensor, sched: StepMajorSchedule):
+        """Step-major: per step, ONE device-resident accumulator across
+        all chunks, ONE host emission.
+
+        ``img_s``/``mat_s`` are the stacked chunk grids ``(n_chunks,
+        chunk_size, ...)``. Every voxel crosses to the host once, and
+        host flushes follow ``self.pipeline``.
+        """
+        flush = self._open_flush(vol)
+        pending = ()
+        try:
+            for work in sched.steps:
+                step = work.step
+                prog = self._scan_program(step.variant, step.call_shape,
+                                          sched)
+                out = prog(img_s, self._translated(mat_s, step))
+                pending = self._place(vol, self._step_writes(step, out),
+                                      flush, pending)
+        finally:
+            if flush is not None:
+                flush.close()
+        if self.plan.out == "host":
+            self._flush_host(vol, pending)
+        return vol
+
+    def _walk_chunks(self, chunk_inputs, n_chunks: int):
+        """The chunk-major walk over ``n_chunks`` chunks of
+        ``chunk_inputs(c) -> (img_c, mat_c)``: the untiled device plan
+        sums the program's outputs, every other plan goes through
+        :meth:`_backproject_chunk`."""
+        if self._single_full_call() and self.plan.out == "device":
+            step = self.plan.steps[0]
+            prog = self._program(step.variant, step.call_shape)
+            acc = None
+            for c in range(n_chunks):
+                part = prog(*chunk_inputs(c))
+                acc = part if acc is None else acc.add_(part)
+            return acc
+        vol = self._alloc()
+        flush = self._open_flush(vol)
+        try:
+            for c in range(n_chunks):
+                vol = self._backproject_chunk(vol, *chunk_inputs(c),
+                                              flush=flush)
+        finally:
+            if flush is not None:
+                flush.close()
+        return vol
+
+    def _walk_steps(self, img_s, mat_s, sched: StepMajorSchedule):
+        """The step-major walk: the untiled device plan returns its one
+        program's output, every other plan goes through
+        :meth:`_execute_step_major`."""
+        if self._single_full_call() and self.plan.out == "device":
+            step = self.plan.steps[0]
+            return self._scan_program(step.variant, step.call_shape,
+                                      sched)(img_s, mat_s)
+        return self._execute_step_major(self._alloc(), img_s, mat_s, sched)
 
     # ---- full-volume drivers --------------------------------------------
 
@@ -384,23 +592,58 @@ class PlanExecutor:
         img_p, mat_p = pad_projection_batch(img_t, mats, self.plan.nb)
         chunks = self._chunks_for(img_p.shape[0])
         if self.plan.schedule == "step":
-            sched = build_step_major(self.plan.steps, chunks,
-                                     chunks[0][1] - chunks[0][0])
-            return self._run_stacked(*_stack_chunks(img_p, mat_p, sched),
-                                     sched)
-        return self._run_chunks(
+            sched = self._data_step_major(chunks)
+            return self._walk_steps(*_stack_chunks(img_p, mat_p, sched),
+                                    sched)
+        return self._walk_chunks(
             lambda c: (img_p[chunks[c][0]:chunks[c][1]],
                        mat_p[chunks[c][0]:chunks[c][1]]), len(chunks))
+
+    def backproject_tile(self, img_t, mats, tile: TileSpec):
+        """Back-project one arbitrary sub-box; exact for every variant
+        (a symmetry variant on a box that is not Z-centered on the
+        volume runs its slab-safe fallback). Returns vol_t of
+        ``tile.shape`` on this executor's device."""
+        plan = self.plan
+        name = resolve_tile_variant(plan.variant, tile, plan.vol_shape_xyz[2])
+        img_t = self._as_input("img_t", img_t)
+        mats = self._as_input("mats", mats)
+        img_p, mat_p = pad_projection_batch(img_t, mats, plan.nb)
+        mat_p = translate_matrices(mat_p, float(tile.i0), float(tile.j0),
+                                   float(tile.k0))
+        chunks = self._chunks_for(img_p.shape[0])
+        if plan.schedule == "step":
+            sched = self._data_step_major(chunks)
+            return self._scan_program(name, tile.shape, sched)(
+                *_stack_chunks(img_p, mat_p, sched))
+        prog = self._program(name, tile.shape)
+        acc = None
+        for s0, s1 in chunks:
+            part = prog(img_p[s0:s1], mat_p[s0:s1])
+            acc = part if acc is None else acc.add_(part)
+        return acc
+
+    def _chunk_inputs(self, projections: torch.Tensor, mat_p: torch.Tensor,
+                      s0: int, s1: int):
+        """Filter + transpose the raw rows of one padded chunk [s0, s1)."""
+        plan = self.plan
+        raw = projections[s0:min(s1, plan.n_proj)]
+        img_c = bp.transpose_projections(
+            fdk_filter_chunk(raw, self.geom, plan.n_proj))
+        # tail chunk: zero images pair with the repeated matrices
+        return _pad_rows(img_c, mat_p[s0:s1], s1 - s0)
 
     def reconstruct(self, projections):
         """Filtered FDK: (np, nh, nw) raw -> (nz, ny, nx) volume.
 
         Pre-weighting + ramp filtering run inside the projection-chunk
-        pipeline, each chunk filtered exactly once. Under the default
-        step-major schedule the filtered chunk stack rides on the device;
-        ``schedule="chunk"`` keeps one filtered chunk resident. Returns a
-        tensor view in native layout, or numpy when ``plan.out ==
-        "host"`` (a transposed view of the host accumulator).
+        pipeline, each chunk filtered exactly once (the filtered chunks
+        feed every tile step). Under the default step-major schedule the
+        filtered chunk stack rides on the device; ``schedule="chunk"``
+        keeps one filtered chunk resident. Returns a tensor view in
+        native layout, or numpy when ``plan.out == "host"`` (a transposed
+        view of the host accumulator, which may exceed the card's
+        memory).
         """
         plan = self.plan
         projections = self._as_input("projections", projections)
@@ -415,13 +658,13 @@ class PlanExecutor:
         producer = _FilteredChunkProducer(self, projections, mat_p)
         if plan.schedule == "step":
             sched = plan.step_major
-            vol = self._run_stacked(*producer.stacked(sched), sched)
+            vol = self._walk_steps(*producer.stacked(sched), sched)
         else:
             def chunk_inputs(c):
                 inputs = producer.get(c)
                 producer.drop(c)
                 return inputs
-            vol = self._run_chunks(chunk_inputs, len(plan.chunks))
+            vol = self._walk_chunks(chunk_inputs, len(plan.chunks))
         if isinstance(vol, np.ndarray):
             return np.transpose(vol, (2, 1, 0))
         return bp.volume_to_native(vol)
@@ -429,10 +672,10 @@ class PlanExecutor:
     # ---- not ported yet ---------------------------------------------------
 
     def open_stream(self, **_):
-        raise _unported("open_stream (online ingest)", "10")
+        raise _unported("open_stream (online ingest)", "3")
 
     def execute_batch(self, projections_seq):
-        raise _unported("execute_batch (request batching)", "10")
+        raise _unported("execute_batch (request batching)", "3")
 
     def execute_distributed(self, img_t, mats, mesh, **_):
-        raise _unported("execute_distributed", "11")
+        raise _unported("execute_distributed", "4")

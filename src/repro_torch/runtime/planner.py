@@ -31,9 +31,9 @@ The plan owns every scheduling decision the paper ties performance to:
     chunks on the device; ``schedule="chunk"`` is the chunk-major loop;
   * option validation, in ONE place, for every entry point.
 
-The plans equal the JAX package's field by field; its tiled, streamed,
-batched and fleet schedules are planned here too, and the executor of
-this package runs the untiled single-device plan (ROADMAP.md).
+The plans equal the JAX package's field by field; its streamed, batched
+and fleet schedules are planned here too, and the executor of this
+package runs the untiled and tiled single-device plans (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -569,7 +569,7 @@ def plan_reconstruction(geom: CTGeometry,
         raise NotImplementedError(
             "variant='auto' and tuning= resolve through the measured "
             "autotuner, which repro_torch does not carry yet (ROADMAP.md "
-            "queue 1 item 9)")
+            "queue 1 item 2)")
     spec = get_spec(variant)
     if precision not in ("f32", "bf16"):
         raise ValueError(

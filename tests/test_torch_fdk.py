@@ -213,9 +213,11 @@ def test_options_fields_match_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tiling=(8, 8, 8)), dict(memory_budget=1 << 20),
+    dict(tiling=(8, 8, 8), precision="bf16"),
+    dict(memory_budget=1 << 20, tuning="cache.json"),
     dict(tuning="cache.json"), dict(service=object()), dict(devices=2),
-    dict(pipeline="async"), dict(precision="bf16"), dict(variant="auto"),
+    dict(pipeline="async", devices=2), dict(precision="bf16"),
+    dict(variant="auto"),
 ])
 def test_unported_options_raise(kw):
     _, t, p, _ = _problem("smoke")
@@ -234,11 +236,13 @@ def test_iterative_methods_raise(method):
 def test_unported_variant_and_executor_paths_raise():
     from repro_torch.runtime.planner import plan_reconstruction
     _, t, p, _ = _problem("smoke")
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        repro_torch.reconstruct(p, t, variant="transpose_mp", device="cpu")
-    tiled = plan_reconstruction(t, "algorithm1_mp", tile_shape=(8, 8, 8))
+    stream = plan_reconstruction(t, "algorithm1_mp", ingest="stream")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PlanExecutor(t, tiled, device="cpu")
+        PlanExecutor(t, stream, device="cpu")
+    batched = plan_reconstruction(t, "algorithm1_mp",
+                                  tile_shape=(8, 8, 8)).batched(2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        PlanExecutor(t, batched, device="cpu")
     plan = plan_reconstruction(t, "algorithm1_mp", out="device")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PlanExecutor(t, plan, fleet=object(), device="cpu")

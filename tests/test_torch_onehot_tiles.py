@@ -164,7 +164,7 @@ def _check_tile_windows(img_shape, mat, shape, views, tiles):
     segments merged). Returns how many samples were checked."""
     ni, nj, nz = shape
     _, nw, nh = img_shape
-    plan = ks.launch_plan(shape, nh)
+    plan = ks.launch_plan(shape, nh, ks.plane_rows(mat, shape))
     kh, khp = nz // 2, nz - nz // 2
     checked = 0
     for k0 in range(0, khp, plan.k_chunk):
@@ -242,7 +242,8 @@ def _stage2_paths(nz, det, nproj, lines):
     mats = projection_matrices(g, device="cpu")
     ni, nj, _ = g.volume_shape_xyz
     nh = g.nh
-    plan = ks.launch_plan(g.volume_shape_xyz, nh)
+    plan = ks.launch_plan(g.volume_shape_xyz, nh,
+                          ks.plane_rows(mats, g.volume_shape_xyz))
     kh, khp = nz // 2, nz - nz // 2
     paths = set()
     for k0 in range(0, khp, plan.k_chunk):

@@ -3,8 +3,10 @@
 The CUDA kernel (``csrc/backproject_subline.cu``, ``tile_kernel``) runs
 only on the card; what surrounds it is checked here:
 
-- the launch plan of ``backproject_subline.launch_plan``, with the
-  kernel's shared-memory layout mirrored here (``tests/test_torch_cuda.py``
+- the launch plan of ``backproject_subline.launch_plan``, with the rows
+  a plane spans read from the launch's matrices (``plane_rows``), so the
+  Z-slabs of a tiled walk take the plan of the volume they belong to, and
+  the kernel's shared-memory layout mirrored here (``tests/test_torch_cuda.py``
   holds the mirror against the kernel's own on the card), fits a block's
   227 KB and leaves at least two blocks per SM at every deep column that
   ``chip_smoke.py`` runs and at P1-P10;
@@ -233,7 +235,7 @@ def _mirror(img_t, mat, shape, windows=None, win_rows=None, source=None):
     ni, nj, nz = shape
     n_proj, nw, nh = img_t.shape
     source = source or ImageColumns(img_t)
-    plan = ks.launch_plan(shape, nh)
+    plan = ks.launch_plan(shape, nh, ks.plane_rows(mat, shape))
     win_rows = win_rows or plan.win_rows
     vec = nh % 4 == 0
     kh, khp = nz // 2, nz - nz // 2
@@ -353,7 +355,7 @@ def test_every_window_fits_unless_named(n, det, nproj):
         assert n_global > 0
     else:
         assert n_global == 0, max(windows)
-    plan = ks.launch_plan(c.shape, det)
+    plan = ks.launch_plan(c.shape, det, ks.plane_rows(c.mats, c.shape))
     for nc, n_rows, path in windows:
         assert (path == "window") == (nc <= WIN_COLS
                                       and n_rows <= plan.win_rows)
@@ -440,3 +442,87 @@ def test_p5_samples_lie_on_the_detector_rows():
                      + m[:, 1, 3]) / z
                 assert float(torch.floor(y).min()) >= 1
                 assert float(torch.floor(y).max()) <= geom.nh - 3
+
+
+# ---------------------------------------------------------------------------
+# the plan of a Z-slab: rows a plane spans read from the matrices
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("prob", PROBLEMS, ids=[p.label for p in PROBLEMS])
+def test_plane_rows_plan_equals_the_depth_rule_untiled(prob):
+    """On the paper's problems the rows read from the matrices give the
+    plan that m = ceil(nh / nz) gives: the untiled launches keep theirs."""
+    g = prob.geometry()
+    mats = projection_matrices(g, device="cpu")
+    shape = g.volume_shape_xyz
+    assert ks.launch_plan(shape, g.nh, ks.plane_rows(mats, shape)) == \
+        ks.launch_plan(shape, g.nh)
+
+
+# (problem, tiling, proj_batch, {padded call shape: (kpt, k chunks) of
+# the matrices' plan, and kpt of the depth rule m = ceil(nh / call nz)})
+SLABS = [("P5", (256, 256, 96), 128, {(256, 256, 192): (4, 1, 1),
+                                      (256, 256, 128): (2, 1, 1)}),
+         ("P10", (650, 650, 325), None, {(652, 656, 650): (4, 3, 2)})]
+
+
+@pytest.mark.parametrize("label,tile,proj_batch,want", SLABS,
+                         ids=[c[0] for c in SLABS])
+def test_slab_calls_take_the_plan_of_their_volume(label, tile, proj_batch,
+                                                  want):
+    """Every step and chunk of the tiled walks chip_smoke.py runs: the
+    paired calls (virtual depth 2 tk) and the centered slab get the
+    smallest chunk that holds their direct half, as the untiled volume
+    does, where the depth rule would read 3-4 rows a plane and cut the
+    chunk (P5 kpt 1, P10 kpt 2)."""
+    from repro_torch.configs.ct_paper import get_problem
+    from repro_torch.core.tiling import translate_matrices
+    from repro_torch.runtime.planner import plan_reconstruction
+    g = get_problem(label).geometry()
+    mats = projection_matrices(g, device="cpu")
+    plan = plan_reconstruction(g, "subline_pl", tile_shape=tile,
+                               proj_batch=proj_batch)
+    seen = set()
+    for step in plan.steps:
+        ni, nj, nz = step.call_shape
+        shape = (-(-ni // 4) * 4, -(-nj // 8) * 8, nz)     # ops pads i/j
+        mt = translate_matrices(mats, float(step.i0), float(step.j0),
+                                float(step.k_off))
+        for s0, s1 in plan.chunks:
+            lp = ks.launch_plan(shape, g.nh, ks.plane_rows(mt[s0:s1], shape))
+            kpt, n_chunks, depth_kpt = want[shape]
+            assert (lp.kpt, lp.grid[1]) == (kpt, n_chunks), (shape, lp)
+            assert ks.launch_plan(shape, g.nh).kpt == depth_kpt
+            seen.add(shape)
+    assert seen == set(want)
+
+
+def test_plane_rows_does_not_read_the_call_depth():
+    g = standard_geometry(n=64, n_det=64, n_proj=8)
+    mats = projection_matrices(g, device="cpu")
+    assert ks.plane_rows(mats, (16, 24, 7)) == ks.plane_rows(mats,
+                                                             (16, 24, 300))
+    # the magnification of standard_geometry's detector: 0.8 nh / nz at
+    # the rotation axis, more nearer the source
+    assert ks.plane_rows(mats, g.volume_shape_xyz) == pytest.approx(0.8,
+                                                                    rel=1e-5)
+
+
+def test_mirror_of_a_paired_slab_call_fits_its_windows():
+    """A mirror-paired call of a tiled walk (translated matrices, virtual
+    depth 2 tk = 96 of a 256-plane volume): the matrices' plan (kpt 2,
+    where the depth rule gives kpt 1) keeps every window in its slot, and
+    the kernel's indexing gives the plain version's volume bit for bit."""
+    from repro_torch.core.tiling import translate_matrices
+    g = standard_geometry(n=256, n_det=256, n_proj=4)
+    img = np.random.RandomState(5).rand(4, g.nh, g.nw).astype(np.float32)
+    img_t = torch.from_numpy(img).transpose(1, 2).contiguous()
+    mt = translate_matrices(projection_matrices(g, device="cpu"), 64.0,
+                            96.0, 40.0)
+    shape = (16, 16, 96)
+    assert ks.launch_plan(shape, g.nh, ks.plane_rows(mt, shape)).kpt == 2
+    assert ks.launch_plan(shape, g.nh).kpt == 1
+    windows = []
+    mirror = _mirror(img_t, mt, shape, windows=windows)
+    assert {path for nc, _, path in windows if nc} == {"window"}
+    assert torch.equal(mirror, ks.backproject_subline_plain(img_t, mt, shape))
