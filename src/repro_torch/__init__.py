@@ -22,9 +22,14 @@ _LAZY = {
     "reconstruct": ("repro_torch.api", "reconstruct"),
     "ReconOptions": ("repro_torch.api", "ReconOptions"),
     "fdk_reconstruct": ("repro_torch.core.fdk", "fdk_reconstruct"),
+    "sart_step": ("repro_torch.core.fdk", "sart_step"),
     "CTGeometry": ("repro_torch.core.geometry", "CTGeometry"),
     "standard_geometry": ("repro_torch.core.geometry", "standard_geometry"),
     "forward_project": ("repro_torch.core.forward", "forward_project"),
+    "solve": ("repro_torch.runtime.solvers", "solve"),
+    "SolveReport": ("repro_torch.runtime.solvers", "SolveReport"),
+    "IterativeExecutor": ("repro_torch.runtime.solvers",
+                          "IterativeExecutor"),
     "TiledReconstructor": ("repro_torch.runtime.engine",
                            "TiledReconstructor"),
 }
@@ -51,8 +56,10 @@ def __dir__():
 
 if TYPE_CHECKING:   # static importers see the real symbols
     from repro_torch.api import ReconOptions, reconstruct  # noqa: F401
-    from repro_torch.core.fdk import fdk_reconstruct  # noqa: F401
+    from repro_torch.core.fdk import fdk_reconstruct, sart_step  # noqa: F401
     from repro_torch.core.forward import forward_project  # noqa: F401
     from repro_torch.core.geometry import (  # noqa: F401
         CTGeometry, standard_geometry)
     from repro_torch.runtime.engine import TiledReconstructor  # noqa: F401
+    from repro_torch.runtime.solvers import (  # noqa: F401
+        IterativeExecutor, SolveReport, solve)

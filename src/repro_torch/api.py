@@ -127,9 +127,10 @@ def reconstruct(projections, geom: CTGeometry, method: str = "fdk",
                 **overrides):
     """Reconstruct a (nz, ny, nx) volume from (np, nh, nw) projections.
 
-    ``method="fdk"`` is the analytic filter + back-project path; the
-    iterative solvers (``"sart"``, ``"os_sart"``, ``"cgls"``,
-    ``"fista_tv"``) raise ``NotImplementedError`` until they are ported.
+    ``method`` selects the algorithm: ``"fdk"`` (analytic filter +
+    back-project) or one of the iterative solvers ``"sart"`` /
+    ``"os_sart"`` / ``"cgls"`` / ``"fista_tv"`` (plan-level loops over
+    the persistent :class:`~repro_torch.runtime.solvers.IterativeExecutor`).
     ``device=None`` means the CUDA card; without one it raises, so pass
     ``device="cpu"`` for the plain PyTorch path. ``projections`` is a
     tensor on that device or a numpy array.
@@ -144,10 +145,24 @@ def reconstruct(projections, geom: CTGeometry, method: str = "fdk",
             pipeline=o.pipeline, tuning=o.tuning, service=o.service,
             devices=o.devices, precision=o.precision, device=device,
             **o.kernel_options_dict())
-    if method in ITERATIVE_METHODS:
+    if method not in ITERATIVE_METHODS:
+        raise ValueError(
+            f"method must be 'fdk' or one of {ITERATIVE_METHODS}, got "
+            f"{method!r}")
+    if o.devices is not None:
+        raise ValueError(
+            "iterative methods run single-device (the solver loop owns "
+            "the volume); devices= applies to method='fdk' only")
+    if o.service is not None:
         raise NotImplementedError(
-            f"method={method!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md queue 1 item 1)")
-    raise ValueError(
-        f"method must be 'fdk' or one of {ITERATIVE_METHODS}, got "
-        f"{method!r}")
+            "service= is not ported to repro_torch yet (ROADMAP.md queue 1 "
+            "item 2)")
+    from repro_torch.runtime.solvers import solve
+    vol, _report = solve(
+        projections, geom, method, n_iters=o.n_iters, relax=o.relax,
+        x0=o.x0, tv_weight=o.tv_weight, tv_inner=o.tv_inner,
+        oversample=o.oversample, variant=o.variant, nb=o.nb,
+        interpret=o.interpret, proj_batch=o.proj_batch,
+        schedule=o.schedule, precision=o.precision, device=device,
+        **o.kernel_options_dict())
+    return vol

@@ -5,7 +5,8 @@ which is why the paper optimizes it. The entry point here is a thin
 façade over the plan/compile/execute core (``runtime.planner`` /
 ``runtime.executor``): the planner owns scheduling and option
 validation, the shared program cache owns the kernel programs, and the
-executor streams projection chunks.
+executor streams projection chunks. :func:`sart_step`, one SART update,
+is a façade over the iterative solvers (``runtime.solvers``).
 """
 
 from __future__ import annotations
@@ -79,15 +80,18 @@ def fdk_reconstruct(projections, geom: CTGeometry,
     overlaps the host flush of one step with the next step's kernels
     (bit-identical to ``"sync"``).
 
-    ``tuning``, ``service``, ``devices``, ``precision="bf16"`` and
-    ``variant="auto"`` raise ``NotImplementedError``: they wait in
-    ROADMAP.md.
+    ``precision="bf16"`` rounds the projection samples to bfloat16 on
+    their way into the back-projector; filtering, weights, accumulators
+    and the output stay float32.
+
+    ``tuning``, ``service``, ``devices`` and ``variant="auto"`` raise
+    ``NotImplementedError``: they wait in ROADMAP.md.
     """
     from repro_torch.runtime.executor import PlanExecutor
 
-    for name, value, item in (("service", service, "3"),
-                              ("devices", devices, "4"),
-                              ("tuning", tuning, "2")):
+    for name, value, item in (("service", service, "2"),
+                              ("devices", devices, "3"),
+                              ("tuning", tuning, "1")):
         if value is not None:
             raise NotImplementedError(
                 f"{name}= is not ported to repro_torch yet (ROADMAP.md "
@@ -100,3 +104,43 @@ def fdk_reconstruct(projections, geom: CTGeometry,
         geom, plan, pipeline="sync" if pipeline is None else pipeline,
         device=device,
     ).reconstruct(projections)
+
+
+def sart_step(vol_zyx, projections, geom: CTGeometry, *, relax: float = 0.25,
+              variant: str = "algorithm1_mp", nb: int = 8,
+              oversample: float = 1.0, interpret: bool = True,
+              tiling: Union[None, str, Sequence[int]] = None,
+              memory_budget: Optional[int] = None,
+              proj_batch: Optional[int] = None,
+              schedule: Optional[str] = None,
+              precision: str = "f32", device=None,
+              **kernel_options):
+    """One SART update (the paper's iterative-reconstruction use).
+
+    Standard SART (Andersen & Kak):
+
+        x += relax * (1 / BP(1)) * BP( (P - FP(x)) / FP(1_vol) )
+
+    FP(1_vol) are the per-ray intersection lengths (projection-domain
+    row sums of the system matrix); BP(1) the voxel-domain column sums.
+
+    Thin façade over ``runtime.solvers`` (``n_iters=1``): repeated calls
+    with the same configuration land on the SAME persistent
+    :class:`~repro_torch.runtime.solvers.IterativeExecutor`, so the
+    normalizers are computed once and later calls build no program.
+    ``tiling=`` / ``memory_budget=`` / ``proj_batch=`` bound the per-call
+    working set as in :func:`fdk_reconstruct`; the volume stays on the
+    device (``out="device"``), since the next forward projection needs
+    it there. ``device=None`` means the CUDA card.
+    """
+    from repro_torch.runtime.solvers import solver_executor
+
+    plan = _build_plan(geom, variant, nb=nb, interpret=interpret,
+                       tiling=tiling, memory_budget=memory_budget,
+                       proj_batch=proj_batch, out="device",
+                       schedule=schedule, precision=precision,
+                       solver="sart", **kernel_options)
+    ex = solver_executor(geom, plan, oversample=oversample, device=device)
+    vol, _report = ex.solve(projections, n_iters=1, relax=relax,
+                            x0=vol_zyx)
+    return vol

@@ -8,9 +8,10 @@ trilinearly.
 
 It is deliberately the *dual* discretization of the back-projector
 (voxel-driven BP vs ray-driven FP), the standard unmatched pair of FDK
-pipelines. Plain PyTorch on the volume's device, a chunk of views at a
-time, the march steps in a Python loop; not a performance target (the
-paper's contribution is back-projection).
+pipelines. On the card the march is the CUDA kernel F1
+(``kernels/forward_project.py``), which the iterative solvers run every
+iteration; on the CPU it is F1's plain PyTorch version, a chunk of views
+at a time with the march steps in a Python loop.
 """
 
 from __future__ import annotations
@@ -21,75 +22,13 @@ import numpy as np
 import torch
 
 from repro_torch.convert import tensor_from_numpy
+# the plain march keeps the JAX package's names here
+from repro_torch.kernels.forward_project import (  # noqa: F401
+    forward_project_kernel, forward_project_plain as _project_view_impl,
+    trilinear_sample)
 
 from .geometry import (CTGeometry, detector_frame, source_positions,
                        voxel_world_coords)
-
-
-def trilinear_sample(vol_zyx: torch.Tensor, px, py, pz, origin, inv_pitch):
-    """Sample volume (z,y,x layout) at world points; zero outside."""
-    nz, ny, nx = vol_zyx.shape
-    # world -> fractional voxel index
-    fx = (px - origin[0]) * inv_pitch[0]
-    fy = (py - origin[1]) * inv_pitch[1]
-    fz = (pz - origin[2]) * inv_pitch[2]
-    x0 = torch.floor(fx)
-    y0 = torch.floor(fy)
-    z0 = torch.floor(fz)
-    dx = fx - x0
-    dy = fy - y0
-    dz = fz - z0
-    valid = ((x0 >= 0) & (x0 <= nx - 2) & (y0 >= 0) & (y0 <= ny - 2)
-             & (z0 >= 0) & (z0 <= nz - 2))
-    ix = torch.where(valid, x0, 0.0).long()
-    iy = torch.where(valid, y0, 0.0).long()
-    iz = torch.where(valid, z0, 0.0).long()
-    flat = vol_zyx.reshape(-1)
-    base = (iz * ny + iy) * nx + ix
-
-    def at(dzi, dyi, dxi):
-        return flat[base + (dzi * ny + dyi) * nx + dxi]
-
-    c00 = at(0, 0, 0) * (1 - dx) + at(0, 0, 1) * dx
-    c01 = at(0, 1, 0) * (1 - dx) + at(0, 1, 1) * dx
-    c10 = at(1, 0, 0) * (1 - dx) + at(1, 0, 1) * dx
-    c11 = at(1, 1, 0) * (1 - dx) + at(1, 1, 1) * dx
-    c0 = c00 * (1 - dy) + c01 * dy
-    c1 = c10 * (1 - dy) + c11 * dy
-    return torch.where(valid, c0 * (1 - dz) + c1 * dz, 0.0)
-
-
-def _project_view_impl(vol_zyx, src, det_origin, ustep, vstep, vol_origin,
-                       inv_pitch, n_steps: int, nh: int, nw: int, step_len,
-                       t_near):
-    """Projection images for one view (frames of shape (3,): returns
-    (nh, nw)) or a chunk of views (frames (k, 3): returns (k, nh, nw)).
-    One accumulator buffer; the march steps are added in order."""
-    dev = vol_zyx.device
-    u = torch.arange(nw, dtype=torch.float32, device=dev)
-    v = torch.arange(nh, dtype=torch.float32, device=dev)
-    V, U = torch.meshgrid(v, u, indexing="ij")     # (nh, nw)
-
-    def col(a, c):      # frame component c, broadcast over (nh, nw)
-        return a[..., c, None, None]
-
-    # detector pixel world positions
-    px = col(det_origin, 0) + U * col(ustep, 0) + V * col(vstep, 0)
-    py = col(det_origin, 1) + U * col(ustep, 1) + V * col(vstep, 1)
-    pz = col(det_origin, 2) + U * col(ustep, 2) + V * col(vstep, 2)
-    sx, sy, sz = col(src, 0), col(src, 1), col(src, 2)
-    dirx, diry, dirz = px - sx, py - sy, pz - sz
-    norm = torch.sqrt(dirx ** 2 + diry ** 2 + dirz ** 2)
-    dirx, diry, dirz = dirx / norm, diry / norm, dirz / norm
-
-    step = np.float32(step_len)
-    ts = np.float32(t_near) + (np.arange(n_steps, dtype=np.float32)
-                               + np.float32(0.5)) * step
-    acc = torch.zeros(dirx.shape, dtype=torch.float32, device=dev)
-    for t in ts.tolist():
-        acc += trilinear_sample(vol_zyx, sx + dirx * t, sy + diry * t,
-                                sz + dirz * t, vol_origin, inv_pitch)
-    return acc * float(step)
 
 
 def march_params(geom: CTGeometry, oversample: float = 2.0, device=None):
@@ -138,7 +77,10 @@ def forward_project(vol_zyx, geom: CTGeometry, oversample: float = 2.0, *,
     instead of all views at once); ``None`` marches every view at once.
     ``views`` selects a subset of view indices (a slice or an index
     sequence), the ordered-subset forward pass; the default projects the
-    full scan. Rows come back in the requested view order.
+    full scan. Rows come back in the requested view order. A CUDA volume
+    is marched by the kernel F1, one launch per chunk of views; a CPU
+    volume by its plain version. Neither ``proj_batch`` nor ``views``
+    changes a value.
     """
     if not isinstance(vol_zyx, torch.Tensor):
         vol_zyx = tensor_from_numpy(vol_zyx, device)
@@ -151,12 +93,14 @@ def forward_project(vol_zyx, geom: CTGeometry, oversample: float = 2.0, *,
            else np.arange(geom.n_proj))
     k = len(idx)
     out = torch.empty((k, geom.nh, geom.nw), dtype=torch.float32, device=dev)
+    if k == 0:
+        return out
     chunk = k if proj_batch is None else max(1, min(int(proj_batch), k))
     for c0 in range(0, k, chunk):
         sel = idx[c0:c0 + chunk]
         src, org, ust, vst = (torch.from_numpy(np.ascontiguousarray(f[sel]))
                               .to(dev) for f in frames)
-        out[c0:c0 + len(sel)] = _project_view_impl(
+        out[c0:c0 + len(sel)] = forward_project_kernel(
             vol_zyx, src, org, ust, vst, vol_origin, inv_pitch, n_steps,
             geom.nh, geom.nw, step_len, t_near)
     return out

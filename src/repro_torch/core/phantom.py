@@ -34,7 +34,15 @@ def shepp_logan_3d(nx: int, ny: int | None = None, nz: int | None = None,
     ys = np.linspace(-1.0, 1.0, ny, dtype=np.float64)
     zs = np.linspace(-1.0, 1.0, nz, dtype=np.float64)
     Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
-    vol = np.zeros((nz, ny, nx), dtype=np.float64)
+    return shepp_logan_at(X, Y, Z).astype(dtype)
+
+
+def shepp_logan_at(X: np.ndarray, Y: np.ndarray,
+                   Z: np.ndarray) -> np.ndarray:
+    """The phantom's float64 density at the points (X, Y, Z) of [-1, 1]^3
+    (arrays of one shape): :func:`shepp_logan_3d` on any part of its grid,
+    a slab of z planes, say, gives the same values."""
+    vol = np.zeros(X.shape, dtype=np.float64)
     for (val, x0, y0, z0, a, b, c, phi_deg) in _ELLIPSOIDS:
         phi = np.deg2rad(phi_deg)
         cp, sp = np.cos(phi), np.sin(phi)
@@ -43,7 +51,7 @@ def shepp_logan_3d(nx: int, ny: int | None = None, nz: int | None = None,
         zr = Z - z0
         inside = (xr / a) ** 2 + (yr / b) ** 2 + (zr / c) ** 2 <= 1.0
         vol += val * inside
-    return vol.astype(dtype)
+    return vol
 
 
 def ball_phantom(n: int, radius: float = 0.5, dtype=np.float32) -> np.ndarray:

@@ -28,9 +28,13 @@
     (:class:`_AsyncFlushQueue`): a side stream copies each step's pieces
     into pinned host buffers while the next step runs.
 
-Request batching, streaming ingest, the solvers, bf16 and the
-multi-device fleet wait in ROADMAP.md and raise ``NotImplementedError``
-here.
+Precision rides the plan: ``precision="bf16"`` wraps every program so
+that projection samples enter the kernel rounded to bfloat16 while the
+matrices, weights, accumulators and the output stay float32
+(:func:`_precision_adapter`). Solver plans run here too, driven by
+``runtime.solvers.IterativeExecutor``. Request batching, streaming
+ingest and the multi-device fleet wait in ROADMAP.md and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -69,9 +73,42 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 def _plan_dtype(plan: ReconPlan) -> str:
     """ProgramCache dtype key of a plan's precision axis."""
-    if plan.precision != "f32":
-        raise _unported(f"precision={plan.precision!r}", "1")
-    return "float32"
+    return "bfloat16" if plan.precision == "bf16" else "float32"
+
+
+def _precision_adapter(dtype: str):
+    """Input-side precision transform for one kernel program, or None.
+
+    ``dtype == "bfloat16"`` implements the plan-level ``precision=
+    "bf16"`` contract: projection samples are rounded to bfloat16 on the
+    way into the kernel, while the per-view matrices, the interpolation
+    weights derived from them and every accumulator stay float32. Every
+    variant, CUDA kernel or plain PyTorch, receives the bf16-rounded
+    values upcast back to float32. The JAX package hands its pure-JAX
+    variants the bf16 array itself and relies on JAX promoting it to
+    float32 at the first product; torch does not promote a 0-dim float32
+    tensor times a bf16 tensor, so the port rounds and upcasts for every
+    variant (the same rounding, and the kernels stay float32 kernels).
+    """
+    if str(dtype) == "float32":
+        return None
+    if str(dtype) != "bfloat16":
+        raise ValueError(
+            f"unsupported program dtype {dtype!r}: 'float32' or "
+            f"'bfloat16'")
+    return lambda img: img.to(torch.bfloat16).to(torch.float32)
+
+
+def _with_precision(fn, dtype: str):
+    """Wrap a kernel fn with the precision adapter (f32 = pass-through)."""
+    cast = _precision_adapter(dtype)
+    if cast is None:
+        return fn
+
+    def wrapped(img, mat, shape, **opts):
+        return fn(cast(img), mat, shape, **opts)
+
+    return wrapped
 
 
 class ProgramCache:
@@ -113,7 +150,8 @@ class ProgramCache:
             opts = spec.resolve_options(
                 {**dict(options), "nb": int(nb), "interpret": bool(interpret)})
             shape = tuple(call_shape)
-            return lambda img, mat: spec.fn(img, mat, shape, **opts)
+            fn = _with_precision(spec.fn, dtype)
+            return lambda img, mat: fn(img, mat, shape, **opts)
 
         return self.get_or_build(key, build)
 
@@ -138,11 +176,12 @@ class ProgramCache:
             opts = spec.resolve_options(
                 {**dict(options), "nb": int(nb), "interpret": bool(interpret)})
             shape = tuple(call_shape)
+            fn = _with_precision(spec.fn, dtype)
 
             def prog(img_s, mat_s):
-                acc = spec.fn(img_s[0], mat_s[0], shape, **opts)
+                acc = fn(img_s[0], mat_s[0], shape, **opts)
                 for c in range(1, int(n_chunks)):
-                    acc += spec.fn(img_s[c], mat_s[c], shape, **opts)
+                    acc += fn(img_s[c], mat_s[c], shape, **opts)
                 return acc
             return prog
 
@@ -367,17 +406,15 @@ class PlanExecutor:
             raise ValueError(
                 f"pipeline must be 'sync' or 'async', got {pipeline!r}")
         if fleet is not None:
-            raise _unported("fleet execution", "4")
+            raise _unported("fleet execution", "3")
         self.device = resolve_device(device)
         self.geom = geom
         self.plan = plan
         self._dtype = _plan_dtype(plan)
         if plan.ingest != "offline":
-            raise _unported("ingest='stream'", "3")
-        if plan.solver != "none":
-            raise _unported(f"solver={plan.solver!r}", "1")
+            raise _unported("ingest='stream'", "2")
         if plan.request_batch != 1:
-            raise _unported("request batching", "3")
+            raise _unported("request batching", "2")
         self.cache = cache if cache is not None else default_program_cache()
         self.pipeline = pipeline
         self.pipeline_depth = int(pipeline_depth)
@@ -672,10 +709,10 @@ class PlanExecutor:
     # ---- not ported yet ---------------------------------------------------
 
     def open_stream(self, **_):
-        raise _unported("open_stream (online ingest)", "3")
+        raise _unported("open_stream (online ingest)", "2")
 
     def execute_batch(self, projections_seq):
-        raise _unported("execute_batch (request batching)", "3")
+        raise _unported("execute_batch (request batching)", "2")
 
     def execute_distributed(self, img_t, mats, mesh, **_):
-        raise _unported("execute_distributed", "4")
+        raise _unported("execute_distributed", "3")

@@ -569,7 +569,7 @@ def plan_reconstruction(geom: CTGeometry,
         raise NotImplementedError(
             "variant='auto' and tuning= resolve through the measured "
             "autotuner, which repro_torch does not carry yet (ROADMAP.md "
-            "queue 1 item 2)")
+            "queue 1 item 1)")
     spec = get_spec(variant)
     if precision not in ("f32", "bf16"):
         raise ValueError(

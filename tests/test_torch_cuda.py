@@ -5,7 +5,9 @@ installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel (K1-K6) is held against its plain PyTorch version and the
-port's oracle on the same inputs, at the repo's rel-RMSE bar of 1e-5.
+port's oracle on the same inputs, at the repo's rel-RMSE bar of 1e-5; the
+forward projector F1 against its plain version, and the iterative solvers
+on the card against the same solves on the CPU.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ from repro_torch.core.geometry import projection_matrices, standard_geometry
 from repro_torch.kernels import backproject_banded as kb
 from repro_torch.kernels import backproject_onehot as ko
 from repro_torch.kernels import backproject_subline as ks
+from repro_torch.kernels import forward_project as kf
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import backproject_ref
 
@@ -47,7 +50,7 @@ INSTANCES = [(ks.LINEAR, 0), (ks.TWO_HOT, 0), (ks.LINEAR, 1)]
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for mod in (ks, ko, kb):
+    for mod in (ks, ko, kb, kf):
         mod.reset_launches()
     return torch.device("cuda")
 
@@ -533,3 +536,142 @@ def test_forward_project_on_card_matches_cpu(cuda):
     cpu = repro_torch.forward_project(torch.from_numpy(vol), g)
     assert card.device.type == "cuda"
     assert rel_rmse(_cpu(card), _cpu(cpu)) < BAR
+
+
+# ---- F1, the forward projector, and the solvers on the card -----------------
+
+# (nx, ny, nz, nw, nh, views, oversample): the sweep's odd shape with a
+# 17 x 13 detector, a cube, and a flat box
+FORWARD_SHAPES = [(13, 17, 5, 17, 13, 5, 1.0), (12, 12, 12, 16, 16, 4, 2.0),
+                  (20, 12, 7, 24, 9, 6, 1.0)]
+
+
+def _forward_geom(nx, ny, nz, nw, nh, nproj):
+    g = standard_geometry(n=max(nx, ny, nz), n_det=max(nw, nh),
+                          n_proj=nproj)
+    return dataclasses.replace(g, nx=nx, ny=ny, nz=nz, nw=nw, nh=nh)
+
+
+@pytest.mark.parametrize("nx,ny,nz,nw,nh,nproj,oversample", FORWARD_SHAPES)
+@pytest.mark.parametrize("proj_batch,views", [
+    (None, None), (2, None), (3, slice(1, None, 2)), (None, [4, 0, 2]),
+])
+def test_f1_matches_plain(cuda, nx, ny, nz, nw, nh, nproj, oversample,
+                          proj_batch, views):
+    """F1 through forward_project (one launch per chunk of views)
+    against its plain version on the same card, on the selected views."""
+    from repro_torch.core import forward as tfw
+    g = _forward_geom(nx, ny, nz, nw, nh, nproj)
+    views = [v for v in views if v < nproj] if isinstance(views, list) \
+        else views
+    vol = torch.from_numpy(np.random.RandomState(nz).rand(nz, ny, nx).astype(
+        np.float32)).to(cuda)
+    out = tfw.forward_project(vol, g, oversample, proj_batch=proj_batch,
+                              views=views)
+    idx = np.arange(nproj)[views] if views is not None else np.arange(nproj)
+    k = len(idx)
+    chunk = k if proj_batch is None else min(proj_batch, k)
+    assert kf.LAUNCHES["forward_project_kernel"] == -(-k // chunk)
+    org, inv, step, near, n_steps = tfw.march_params(g, oversample, cuda)
+    frames = [torch.from_numpy(np.ascontiguousarray(f[idx])).to(cuda)
+              for f in tfw.view_frames(g)]
+    plain = kf.forward_project_plain(vol, *frames, org, inv, n_steps, nh,
+                                     nw, step, near)
+    assert out.device.type == "cuda" and tuple(out.shape) == (k, nh, nw)
+    assert rel_rmse(_cpu(out), _cpu(plain)) < BAR
+    cpu = tfw.forward_project(vol.cpu(), g, oversample, views=views)
+    assert rel_rmse(_cpu(out), _cpu(cpu)) < BAR
+
+
+def test_f1_bf16_route_matches_plain_on_rounded_volume(cuda):
+    """A bf16 solver's forward program rounds the volume to bf16 and
+    marches it in f32: the plain version on the rounded volume."""
+    from repro_torch.core import forward as tfw
+    from repro_torch.runtime.planner import plan_reconstruction
+    from repro_torch.runtime.solvers import IterativeExecutor
+    g = standard_geometry(n=13, n_det=17, n_proj=5)
+    vol = torch.from_numpy(np.random.RandomState(2).rand(13, 13, 13).astype(
+        np.float32)).to(cuda)
+    plan = plan_reconstruction(g, "subline_pl", out="device", nb=1,
+                               precision="bf16", solver="sart")
+    ex = IterativeExecutor(g, plan, oversample=1.0)
+    got = ex._fp(vol)
+    org, inv, step, near, n_steps = tfw.march_params(g, 1.0, cuda)
+    frames = [torch.from_numpy(f).to(cuda) for f in tfw.view_frames(g)]
+    want = kf.forward_project_plain(vol.to(torch.bfloat16).float(), *frames,
+                                    org, inv, n_steps, g.nh, g.nw, step,
+                                    near)
+    assert rel_rmse(_cpu(got), _cpu(want)) < BAR
+    assert kf.LAUNCHES["forward_project_kernel"] == 1
+
+
+def test_cuda_volumes_never_reach_the_plain_march(cuda, monkeypatch):
+    import repro_torch
+    from repro_torch.core.phantom import shepp_logan_3d
+
+    def refuse(*_):
+        raise AssertionError("plain march called on a CUDA volume")
+
+    monkeypatch.setattr(kf, "forward_project_plain", refuse)
+    g = standard_geometry(n=12, n_det=16, n_proj=4)
+    out = repro_torch.forward_project(shepp_logan_3d(12), g, device="cuda")
+    assert out.device.type == "cuda"
+    assert kf.LAUNCHES["forward_project_kernel"] == 1
+
+
+def test_f1_rejects_what_it_does_not_take(cuda):
+    from repro_torch.core import forward as tfw
+    g = standard_geometry(n=8, n_det=12, n_proj=2)
+    org, inv, step, near, n_steps = tfw.march_params(g, 1.0, cuda)
+    frames = [torch.from_numpy(f).to(cuda) for f in tfw.view_frames(g)]
+    vol = torch.zeros((8, 8, 8), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        kf.forward_project_kernel(vol.double(), *frames, org, inv, n_steps,
+                                  g.nh, g.nw, step, near)
+    with pytest.raises(ValueError, match="device"):
+        kf.forward_project_kernel(vol, *(f.cpu() for f in frames), org, inv,
+                                  n_steps, g.nh, g.nw, step, near)
+    with pytest.raises(ValueError, match="frames"):
+        kf.forward_project_kernel(vol, frames[0][:1], *frames[1:], org, inv,
+                                  n_steps, g.nh, g.nw, step, near)
+    assert kf.LAUNCHES["forward_project_kernel"] == 0
+
+
+@pytest.mark.parametrize("method,kw", [("sart", {}),
+                                       ("os_sart", {"proj_batch": 8}),
+                                       ("cgls", {}), ("fista_tv", {})])
+def test_solvers_on_card_match_cpu(cuda, method, kw):
+    """Each solver with subline_pl on the card (F1 and K2) against the same
+    solve on the CPU (plain versions), at the CPU parity tests' 1e-4."""
+    from repro_torch.runtime.executor import ProgramCache
+    from repro_torch.runtime.solvers import solve
+    g = standard_geometry(n=24, n_det=32, n_proj=16)
+    projs = np.random.RandomState(3).rand(16, g.nh, g.nw).astype(np.float32)
+    card, rep = solve(projs, g, method, n_iters=3, variant="subline_pl",
+                      cache=ProgramCache(), **kw)
+    cpu, rep_cpu = solve(projs, g, method, n_iters=3, variant="subline_pl",
+                         cache=ProgramCache(), device="cpu", **kw)
+    assert card.device.type == "cuda"
+    assert rel_rmse(_cpu(card), _cpu(cpu)) < 1e-4
+    for a, b in zip(rep.residuals, rep_cpu.residuals):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    assert rep.compiles_warm == 0
+    counts = _launch_counts()
+    assert counts["backproject_subline_fused"] > 0
+    assert kf.LAUNCHES["forward_project_kernel"] > 0
+
+
+def test_sart_step_and_reconstruct_on_card(cuda):
+    import repro_torch
+    g = standard_geometry(n=16, n_det=24, n_proj=8)
+    projs = np.random.RandomState(5).rand(8, g.nh, g.nw).astype(np.float32)
+    x = repro_torch.sart_step(np.zeros((16, 16, 16), np.float32), projs, g,
+                              variant="subline_pl", nb=4)
+    cpu = repro_torch.sart_step(np.zeros((16, 16, 16), np.float32), projs, g,
+                                variant="subline_pl", nb=4, device="cpu")
+    assert x.device.type == "cuda"
+    assert rel_rmse(_cpu(x), _cpu(cpu)) < 1e-4
+    vol = repro_torch.reconstruct(projs, g, method="sart",
+                                  variant="subline_pl", n_iters=2,
+                                  precision="bf16")
+    assert vol.device.type == "cuda" and bool(torch.isfinite(vol).all())

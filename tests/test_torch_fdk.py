@@ -212,11 +212,13 @@ def test_options_fields_match_jax():
         dataclasses.asdict(repro.ReconOptions())
 
 
+# precision="bf16" is ported: its two cases (kw0, kw6) became unported
+# combinations that still name bf16 and run in test_bf16_options_run
 @pytest.mark.parametrize("kw", [
-    dict(tiling=(8, 8, 8), precision="bf16"),
+    dict(tiling=(8, 8, 8), precision="bf16", variant="auto"),
     dict(memory_budget=1 << 20, tuning="cache.json"),
     dict(tuning="cache.json"), dict(service=object()), dict(devices=2),
-    dict(pipeline="async", devices=2), dict(precision="bf16"),
+    dict(pipeline="async", devices=2), dict(precision="bf16", devices=2),
     dict(variant="auto"),
 ])
 def test_unported_options_raise(kw):
@@ -226,11 +228,40 @@ def test_unported_options_raise(kw):
                                 device="cpu")
 
 
+@pytest.mark.parametrize("kw", [dict(tiling=(8, 8, 8), precision="bf16"),
+                                dict(precision="bf16")])
+def test_bf16_options_run(kw):
+    """The two bf16 calls that raised before precision was ported now run
+    and match the JAX package's bf16 reconstruction."""
+    g, t, p, _ = _problem("smoke")
+    want = np.asarray(repro.reconstruct(
+        jnp.asarray(p), g, options=repro.ReconOptions(nb=4, **kw)))
+    got = repro_torch.reconstruct(p, t, options=ReconOptions(nb=4, **kw),
+                                  device="cpu")
+    got = got if isinstance(got, np.ndarray) else got.numpy()
+    assert got.dtype == np.float32
+    assert rel_rmse(got, want) < 1e-4
+
+
 @pytest.mark.parametrize("method", ["sart", "os_sart", "cgls", "fista_tv"])
 def test_iterative_methods_raise(method):
-    _, t, p, _ = _problem("smoke")
+    """The iterative methods run through reconstruct and match the JAX
+    package at 1e-4 (tests/test_torch_solvers.py); what still raises is
+    what the JAX package refuses (devices=) and the unported service=."""
+    g, t, p, _ = _problem("smoke")
+    kw = dict(n_iters=3, nb=4, proj_batch=4 if method == "os_sart" else None)
+    want = np.asarray(repro.reconstruct(jnp.asarray(p), g, method=method,
+                                        options=repro.ReconOptions(**kw)))
+    got = repro_torch.reconstruct(p, t, method=method,
+                                  options=ReconOptions(**kw), device="cpu")
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert rel_rmse(got.numpy(), want) < 1e-4
+    with pytest.raises(ValueError, match="devices="):
+        repro_torch.reconstruct(p, t, method=method, devices=2,
+                                device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        repro_torch.reconstruct(p, t, method=method, device="cpu")
+        repro_torch.reconstruct(p, t, method=method, service=object(),
+                                device="cpu")
 
 
 def test_unported_variant_and_executor_paths_raise():
