@@ -51,6 +51,29 @@ bf16 SART against f32; one SART iteration with ``onehot_pl`` and
 the CPU at 24^3; and a profile of one SART iteration at P5. P10's tiled
 walks run last, after every profile.
 
+Telemetry (phase ``[trace]``, right after P5, with ``REPRO_TRACE_NVTX=1``
+set before ``repro_torch`` is imported): P5 ``reconstruct`` with
+``subline_pl`` under ``telemetry.tracing`` and ``torch.profiler``: the
+spans' counts and host time, the traced wall against the untraced one,
+the device's idle time split by the span open on the main thread (and,
+where none is, by the host op over it); compile spans equal to the
+program cache's misses, the ``step.dispatch`` roofline args (8 x voxels x
+views FLOP), a closed span tree, the ``record_function`` ranges in the
+profile; the tiled walk with a host volume and the async flush, its
+``flush`` spans on the flusher thread's lane. The Chrome trace goes to
+``p5.trace.json`` beside this script (git ignores it).
+
+The autotuner (phase ``[tune]``, before P10), at P5 with a fresh cache:
+``algorithm1_mp`` (the plain version, the CPU's heuristic base of
+``"auto"``) timed once; the wide search over the three CUDA variants with
+the default budget (each must be measured; the base is the card's ladder
+head, ``subline_pl``), every candidate's wall printed; ``reconstruct(variant="auto", tuning=path)``
+resolving with zero measurements, held against ``algorithm1_mp`` (1e-5,
+or the bf16 contract where the search picked bf16); exact-mode tuning of
+the tiled host walk, bit for bit equal to the heuristic; a second
+process hitting the cache; a SART tune. Each kernel's launches in the
+phase join its row of the ``kernels`` line as ``launches_tune``.
+
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
@@ -61,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1716,6 +1740,454 @@ def phase_solve(seed: int) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# telemetry and the autotuner
+# --------------------------------------------------------------------------
+
+TRACE_OUT = ROOT / "p5.trace.json"
+# main-thread spans the device's idle time is attributed to ("none": no
+# span open)
+IDLE_SPANS = ("filter.chunk", "step.dispatch", "plan.build")
+CUDA_VARIANTS = ("subline_pl", "onehot_pl", "banded_pl")
+# variant -> (launch counter of nb-fused launches, of single-view ones)
+VARIANT_KERNELS = {
+    "subline_pl": ("backproject_subline_fused", "backproject_subline_kernel"),
+    "onehot_pl": ("backproject_onehot_fused", "backproject_onehot_kernel"),
+    "banded_pl": ("backproject_banded_fused", "backproject_banded_kernel"),
+}
+SART_TUNE_BUDGET_S = 30.0
+# run as ``python -c SECOND_PROCESS '{"src": ..., "variants": ...,
+# "path": ...}'``
+SECOND_PROCESS = r"""
+import json, sys
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["src"])
+from repro_torch.configs.ct_paper import get_problem
+from repro_torch.runtime import autotune as at
+
+calls = []
+orig = at._measure_config
+at._measure_config = lambda *a, **k: calls.append(1) or orig(*a, **k)
+geom = get_problem("P5").geometry()
+cfg = at.autotune(geom, "auto", variants=tuple(args["variants"]),
+                  cache=args["path"])
+res = at.resolve_config(geom, "auto", cache=args["path"])
+print("RESULT:" + json.dumps({"measured": len(calls), "source": cfg.source,
+                              "trials": cfg.trials, "key": repr(cfg.key),
+                              "resolved": res.source,
+                              "resolved_key": repr(res.key)}))
+"""
+
+
+def _span_events(name=None):
+    from repro_torch.runtime import telemetry
+    return [e for e in telemetry.events() if e.get("ph") == "X"
+            and (name is None or e["name"] == name)]
+
+
+def _span_tree_closed() -> None:
+    from repro_torch.runtime import telemetry
+    spans = _span_events()
+    ids = {e["args"]["span_id"] for e in spans}
+    require(telemetry.open_span_count() == 0, "a span is still open")
+    require(all(e["args"]["parent_id"] is None or e["args"]["parent_id"]
+                in ids for e in spans), "a span's parent was not recorded")
+
+
+def _union(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_by_span(prof, window: str) -> tuple:
+    """The device's idle time inside the profiler range ``window`` (a
+    ``record_function`` around the run), split by which span was open on
+    the main thread, innermost first, and the idle time with no span open
+    split by the outermost host op the profiler recorded over it. The
+    spans' host clock is put on the profiler's timeline through the
+    ``step.dispatch`` range, which is both a span and a
+    ``record_function`` range."""
+    from torch.autograd import DeviceType
+    spans = _span_events()
+    names = {e["name"] for e in spans} | {window}
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    anchor = [e for e in cpu if e.name == "step.dispatch"]
+    win = [e for e in cpu if e.name == window]
+    require(bool(anchor) and bool(win), "the profile holds no "
+            "record_function range of step.dispatch or of the run")
+    step = min((e for e in spans if e["name"] == "step.dispatch"),
+               key=lambda e: e["ts"])
+    offset = min(e.time_range.start for e in anchor) - step["ts"]
+    w0, w1 = win[0].time_range.start, win[0].time_range.end
+    busy = _union([(max(e.time_range.start, w0), min(e.time_range.end, w1))
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name not in names
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > w0 and e.time_range.start < w1])
+    gaps, t = [], w0
+    for a, b in busy:
+        if a > t:
+            gaps.append((t, a))
+        t = max(t, b)
+    if t < w1:
+        gaps.append((t, w1))
+    main = [(e["ts"] + offset, e["ts"] + e["dur"] + offset, e["name"])
+            for e in spans if e["tid"] == "MainThread"]
+    tops = [(e.time_range.start, e.time_range.end, e.name) for e in cpu
+            if e.cpu_parent is not None and e.cpu_parent.name == window
+            and e.name not in names]
+    split, unspanned = {}, {}
+    for a, b in gaps:
+        cuts = sorted({a, b} | {x for s0, s1, _ in main for x in (s0, s1)
+                                if a < x < b})
+        for c0, c1 in zip(cuts, cuts[1:]):
+            mid = 0.5 * (c0 + c1)
+            open_ = [s for s in main if s[0] <= mid < s[1]]
+            name = max(open_)[2] if open_ else "none"
+            split[name] = split.get(name, 0.0) + (c1 - c0) / 1e3
+            if name == "none":
+                for t0, t1, op in tops:
+                    lap = min(c1, t1) - max(c0, t0)
+                    if lap > 0:
+                        unspanned[op] = unspanned.get(op, 0.0) + lap / 1e3
+    busy_ms = sum(b - a for a, b in busy) / 1e3
+    return (w1 - w0) / 1e3, busy_ms, split, unspanned
+
+
+def phase_trace(seed: int) -> None:
+    """[trace]: P5 through ``reconstruct`` (subline_pl nb=8, untiled)
+    under ``telemetry.tracing`` and ``torch.profiler``: span counts and
+    host time by name, the traced wall against the untraced one, and the
+    device's idle time split by the main thread's open span; the span
+    contracts (compile spans = program-cache misses, the roofline args,
+    a closed tree, the ranges in the profile); then the tiled walk with
+    a host volume and the async flush, whose flush spans must sit on the
+    flusher thread's lane."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs.ct_paper import get_problem
+    from repro_torch.runtime import telemetry
+    from repro_torch.runtime.executor import (PlanExecutor, ProgramCache,
+                                              default_program_cache)
+    from repro_torch.runtime.planner import plan_reconstruction
+
+    t_phase = time.perf_counter()
+    require(telemetry._NVTX_ANNOTATE, "REPRO_TRACE_NVTX=1 was not set "
+            "before repro_torch was imported")
+    geom = get_problem("P5").geometry()
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(rng.random(geom.proj_shape_hw,
+                                    dtype=np.float32)).cuda()
+
+    def run():
+        return repro_torch.reconstruct(p, geom, variant="subline_pl")
+
+    # compile spans against the misses of a fresh program cache
+    cache = ProgramCache()
+    ex = PlanExecutor(geom, plan_reconstruction(geom, "subline_pl",
+                                                out="device"), cache)
+    with telemetry.tracing():
+        ex.reconstruct(p)
+        cold = (len(_span_events("compile")), cache.stats()["misses"])
+        ex.reconstruct(p)
+        warm = (len(_span_events("compile")), cache.stats()["misses"])
+    torch.cuda.synchronize()
+    print(f"[trace] fresh ProgramCache: compile spans / misses {cold[0]} / "
+          f"{cold[1]} after the first call, {warm[0]} / {warm[1]} after "
+          f"the second")
+    require(cold[0] == cold[1] > 0 and warm == cold,
+            "compile spans do not equal the program cache's misses")
+    del ex, cache
+
+    # the traced wall against the untraced one, in turns
+    def wall(traced: bool) -> float:
+        torch.cuda.synchronize()
+        if traced:
+            telemetry.enable(clear_events=True)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        telemetry.disable()
+        return dt
+
+    run()
+    torch.cuda.synchronize()
+    walls = {False: [], True: []}
+    for i in range(6):
+        for traced in ((False, True) if i % 2 == 0 else (True, False)):
+            walls[traced].append(wall(traced))
+    plain_ms = statistics.median(walls[False])
+    traced_ms = statistics.median(walls[True])
+    print(f"[trace] P5 reconstruct subline_pl, host clock to a "
+          f"synchronize, median of 6 in turns: untraced {plain_ms:.3f} ms, "
+          f"traced {traced_ms:.3f} ms, overhead "
+          f"{traced_ms / plain_ms - 1.0:+.4f} (untraced "
+          f"{min(walls[False]):.3f}-{max(walls[False]):.3f}, traced "
+          f"{min(walls[True]):.3f}-{max(walls[True]):.3f})")
+
+    # one traced run inside the profiler
+    misses0 = default_program_cache().stats()["misses"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with telemetry.tracing(str(TRACE_OUT)):
+            with record_function("trace.reconstruct"):
+                t0 = time.perf_counter()
+                vol = run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+    require(tuple(vol.shape) == geom.volume_shape_zyx
+            and bool(torch.isfinite(vol).all()),
+            "the traced run: non-finite values or wrong shape")
+    _span_tree_closed()
+    doc = json.loads(TRACE_OUT.read_text())
+    require(any(e.get("ph") == "X" for e in doc["traceEvents"]),
+            "the Chrome trace holds no span")
+    by_name = {}
+    for e in _span_events():
+        n, ms = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    print(f"[trace] traced P5 run under torch.profiler: wall "
+          f"{wall_ms:.3f} ms; spans (count, summed host ms): "
+          + ", ".join(f"{k} {n} {ms:.3f}" for k, (n, ms)
+                      in sorted(by_name.items())))
+    misses = default_program_cache().stats()["misses"] - misses0
+    require(by_name.get("compile", (0, 0.0))[0] == misses,
+            "compile spans do not equal the program cache's misses")
+    steps = _span_events("step.dispatch")
+    want = FLOPS_PER_UPDATE * geom.nx * geom.ny * geom.nz * geom.n_proj
+    for e in steps:
+        a = e["args"]
+        print(f"[trace] step.dispatch {a['variant']} {a['call_shape']}: "
+              f"{a['flops']:.4e} FLOP = 8 x {a['voxels']} voxels x "
+              f"{a['n_views']} views, {a['bytes']:.4e} B modeled, "
+              f"{a['ai_flop_per_byte']} FLOP/B; bound at 67 TFLOP/s "
+              f"{a['flops'] / PEAK_FP32_FLOPS * 1e3:.3f} ms; host "
+              f"{e['dur'] / 1e3:.3f} ms (the enqueue)")
+        require(a["flops"] == FLOPS_PER_UPDATE * a["voxels"] * a["n_views"],
+                "step.dispatch flops != 8 x voxels x views")
+    require(len(steps) == 1 and steps[0]["args"]["flops"] == want,
+            f"the untiled P5 run is not one step of {want:.4e} FLOP")
+    names = {e.name for e in prof.events()}
+    require("step.dispatch" in names, "the record_function range of "
+            "step.dispatch is not in the profile")
+    window_ms, busy_ms, split, unspanned = idle_by_span(
+        prof, "trace.reconstruct")
+    idle = window_ms - busy_ms
+    print(f"[trace] profile window {window_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle {idle:.3f} ms (share "
+          f"{idle / window_ms:.4f}); idle by open main-thread span: "
+          + ", ".join(f"{k} {ms:.3f} ms ({ms / max(idle, 1e-9):.4f})"
+                      for k, ms in sorted(split.items(),
+                                          key=lambda kv: -kv[1])))
+    require(abs(sum(split.values()) - idle) < 1e-3 * max(idle, 1.0),
+            "the idle split does not add up")
+    rest = split.get("none", 0.0) - sum(unspanned.values())
+    print("[trace] idle with no span open, by the host op over it: "
+          + ", ".join(f"{op[:60]} {ms:.3f} ms" for op, ms in
+                      sorted(unspanned.items(), key=lambda kv: -kv[1])[:8])
+          + f"; under no op (Python) {rest:.3f} ms")
+    del vol
+
+    # the tiled walk, host volume, async flush
+    with telemetry.tracing():
+        vol = repro_torch.reconstruct(p, geom, variant="subline_pl",
+                                      tiling=(256, 256, 96), out="host",
+                                      pipeline="async")
+    _span_tree_closed()
+    flushes = _span_events("flush")
+    steps = _span_events("step.dispatch")
+    lanes = sorted({e["tid"] for e in flushes})
+    print(f"[trace] tiled P5 (256, 256, 96) out=host async: "
+          f"{len(steps)} step.dispatch on "
+          f"{sorted({e['tid'] for e in steps})}, {len(flushes)} flush on "
+          f"{lanes}, flush host ms {sum(e['dur'] for e in flushes) / 1e3:.3f}")
+    require(len(steps) == TILED_P5_STEPS and len(flushes) == len(steps)
+            and lanes == ["recon-flush"],
+            "the tiled async walk's flush spans are not on the flusher lane")
+    require(isinstance(vol, np.ndarray) and bool(np.isfinite(vol).all()),
+            "the tiled traced run: not a finite host volume")
+    telemetry.clear()
+    del vol, p
+    print(f"[trace] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_tune(seed: int) -> dict:
+    """[tune]: the autotuner at P5 on the card, untiled, with a fresh
+    cache in a temporary directory: (a) algorithm1_mp, the plain
+    version, once; (b) the wide search over the three CUDA variants with
+    the default budget; (c) reconstruct(variant="auto", tuning=path) resolving
+    with zero measurements, held against algorithm1_mp; (d) exact mode
+    on the tiled host walk, bit for bit against the heuristic; (e) a
+    second process hitting the cache; (f) a SART tune. Returns each
+    kernel's launches over the phase."""
+    import tempfile
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import ReconOptions
+    from repro_torch.configs.ct_paper import get_problem
+    from repro_torch.runtime import autotune as at
+    from repro_torch.runtime import telemetry
+    from repro_torch.runtime.executor import PlanExecutor
+
+    t_phase = time.perf_counter()
+    geom = get_problem("P5").geometry()
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(rng.random(geom.proj_shape_hw,
+                                    dtype=np.float32)).cuda()
+    total = {k: 0 for k in launches()}
+
+    def counted(fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        n = launches()
+        for k, v in n.items():
+            total[k] += v
+        return out, {k: v for k, v in n.items() if v}
+
+    def candidates(label):
+        rows = [e["args"] for e in _span_events("autotune.candidate")]
+        for a in rows:
+            print(f"[tune] {label} candidate {a['key']}: "
+                  f"{a['wall_us'] / 1e3:.3f} ms")
+        return rows
+
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "tuning.json")
+    print(f"[tune] fingerprint {at.fingerprint_key()}")
+
+    # (a) the plain version
+    t0 = time.perf_counter()
+    base, n = counted(lambda: repro_torch.reconstruct(
+        p, geom, variant="algorithm1_mp"))
+    base_s = time.perf_counter() - t0
+    print(f"[tune] (a) reconstruct algorithm1_mp (the plain version; the "
+          f"CPU's heuristic base of 'auto') at P5: {base_s * 1e3:.3f} ms, "
+          f"one run, host clock to a synchronize; launches {n}")
+    require(not n, "algorithm1_mp launched a kernel")
+
+    # (b) the wide search, with the tuner's default budget and iters
+    untuned = at.resolve_config(geom, "auto", cache=path)
+    print(f"[tune] (b) untuned 'auto' plans {untuned.variant} "
+          f"({untuned.source})")
+    require(untuned.source == "heuristic"
+            and untuned.variant == CUDA_VARIANTS[0],
+            "untuned 'auto' does not plan the card's ladder head")
+    t0 = time.perf_counter()
+    with telemetry.tracing():
+        cfg, n = counted(lambda: at.autotune(
+            geom, "auto", variants=CUDA_VARIANTS, cache=path))
+    rows = candidates("(b)")
+    print(f"[tune] (b) autotune(auto) {time.perf_counter() - t0:.1f} s: "
+          f"winner {cfg.key}, {cfg.wall_us / 1e3:.3f} ms against the "
+          f"baseline's {cfg.baseline_us / 1e3:.3f} ms, speedup "
+          f"{cfg.speedup:.3f}, trials {cfg.trials}; launches {n}")
+    measured = {a["variant"] for a in rows}
+    require(set(CUDA_VARIANTS) <= measured,
+            f"the tuner did not measure every CUDA variant: {measured}")
+    for variant in CUDA_VARIANTS:
+        require(n.get(VARIANT_KERNELS[variant][0], 0) > 0,
+                f"the search never launched {VARIANT_KERNELS[variant][0]}")
+
+    # (c) resolve with zero measurements
+    calls = []
+    orig = at._measure_config
+    at._measure_config = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    res = at.resolve_config(geom, "auto", cache=path)
+    vol, n = counted(lambda: repro_torch.reconstruct(
+        p, geom, options=ReconOptions(variant="auto", tuning=path)))
+    at._measure_config = orig
+    f32 = cfg.precision == "f32"
+    bar = BAR if f32 else BF16_CONTRACT
+    r = rel_rmse(vol, base)
+    print(f"[tune] (c) reconstruct(variant='auto', tuning=path): "
+          f"{len(calls)} measurements, resolved {res.source}; launches {n}; "
+          f"rel_rmse {r:.3e} vs algorithm1_mp (bar {bar:g}: the "
+          f"{'f32' if f32 else 'bf16'} contract)")
+    require(not calls and res.source == "cache" and res.key == cfg.key,
+            "the tuned reconstruct measured or missed the cache")
+    if cfg.variant in VARIANT_KERNELS:
+        require(sum(n.get(k, 0) for k in VARIANT_KERNELS[cfg.variant]) > 0,
+                f"the tuned reconstruct never launched {cfg.variant}")
+    require(tuple(vol.shape) == geom.volume_shape_zyx and r < bar,
+            "the tuned reconstruct disagrees with algorithm1_mp")
+    del vol, base
+
+    # (d) exact mode: order-only knobs, bit for bit
+    t0 = time.perf_counter()
+    tiled = dict(tiling=(256, 256, 96), out="host")
+    with telemetry.tracing():
+        cfg_d, n = counted(lambda: at.autotune(
+            geom, "subline_pl", iters=1, cache=path, **tiled))
+    candidates("(d)")
+    heur = repro_torch.reconstruct(p, geom, variant="subline_pl", **tiled)
+    tuned = PlanExecutor.from_config(geom, cfg_d).reconstruct(p)
+    same = bool(np.array_equal(heur, tuned))
+    print(f"[tune] (d) exact autotune(subline_pl, tiling=(256, 256, 96), "
+          f"out=host) {time.perf_counter() - t0:.1f} s: winner schedule "
+          f"{cfg_d.schedule}, pipeline {cfg_d.pipeline} depth "
+          f"{cfg_d.pipeline_depth}, {cfg_d.wall_us / 1e3:.3f} ms against "
+          f"{cfg_d.baseline_us / 1e3:.3f} ms, trials {cfg_d.trials}; "
+          f"launches {n}; tuned volume bitwise equal to the heuristic: "
+          f"{same}")
+    require(same and cfg_d.variant == "subline_pl"
+            and cfg_d.tile_shape == (256, 256, 96)
+            and cfg_d.precision == "f32",
+            "exact-mode tuning is not bit-identical to the heuristic")
+    del heur, tuned
+
+    # (e) a second process resolves the same cache
+    child = json.dumps({"src": str(ROOT / "src"),
+                        "variants": list(CUDA_VARIANTS), "path": path})
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", SECOND_PROCESS, child],
+                         check=True, capture_output=True, text=True,
+                         timeout=300)
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("RESULT:")][-1]
+    second = json.loads(line[len("RESULT:"):])
+    print(f"[tune] (e) second process ({time.perf_counter() - t0:.1f} s): "
+          f"{second}")
+    require(second["measured"] == 0 and second["trials"] == 0
+            and second["source"] == second["resolved"] == "cache"
+            and second["key"] == second["resolved_key"] == repr(cfg.key),
+            "the second process did not hit the cache")
+
+    # (f) a SART tune
+    t0 = time.perf_counter()
+    with telemetry.tracing():
+        cfg_f, n = counted(lambda: at.autotune(
+            geom, "subline_pl", method="sart", iters=1,
+            budget_s=SART_TUNE_BUDGET_S, cache=path))
+    candidates("(f) sart, per iteration,")
+    print(f"[tune] (f) autotune(subline_pl, method='sart') "
+          f"{time.perf_counter() - t0:.1f} s: winner {cfg_f.key}, "
+          f"{cfg_f.wall_us / 1e3:.3f} ms per iteration against the "
+          f"baseline's {cfg_f.baseline_us / 1e3:.3f} ms, speedup "
+          f"{cfg_f.speedup:.3f}, trials {cfg_f.trials}; launches {n}")
+    require(cfg_f.solver == "sart" and n.get(F1, 0) > 0
+            and n.get("backproject_subline_fused", 0) > 0,
+            "the SART tune did not launch F1 and K2")
+    telemetry.clear()
+    tmp.cleanup()
+    del p
+    torch.cuda.empty_cache()
+    print(f"[tune] launches over the phase: "
+          f"{ {k: v for k, v in total.items() if v} }")
+    print(f"[tune] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1725,6 +2197,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # read when telemetry is imported: [trace]'s spans open
+    # record_function ranges (spans exist only while tracing is on)
+    os.environ["REPRO_TRACE_NVTX"] = "1"
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     t0 = time.perf_counter()
@@ -1738,10 +2213,15 @@ def main(argv=None) -> int:
     f1_row = phase_solve(args.seed)
     rows = phase_p5(args.seed, errs)
     rows[F1] = f1_row
+    # right after P5: the profiler lost device records late in a process
+    phase_trace(args.seed)
     plain, plans = PlainCalls(), PlanLog()
     walls = phase_tiled_p5(args.seed, plain, plans)
     profile_tiled(args.seed, walls)
     phase_forward()
+    tune = phase_tune(args.seed)
+    for name, row in rows.items():
+        row["launches_tune"] = tune[name]
     # last: after P10's host walks the profiler recorded no device time at
     # all, so every profile runs before them
     plans.report()

@@ -133,7 +133,9 @@ def reconstruct(projections, geom: CTGeometry, method: str = "fdk",
     the persistent :class:`~repro_torch.runtime.solvers.IterativeExecutor`).
     ``device=None`` means the CUDA card; without one it raises, so pass
     ``device="cpu"`` for the plain PyTorch path. ``projections`` is a
-    tensor on that device or a numpy array.
+    tensor on that device or a numpy array. ``options.tuning`` (and
+    ``variant="auto"``) reach every method: the plan resolves by lookup
+    of the autotuner's persisted winner for this device.
     """
     o = _coerce_options(options, overrides, f"reconstruct(method={method!r})")
     if method == "fdk":
@@ -156,13 +158,13 @@ def reconstruct(projections, geom: CTGeometry, method: str = "fdk",
     if o.service is not None:
         raise NotImplementedError(
             "service= is not ported to repro_torch yet (ROADMAP.md queue 1 "
-            "item 2)")
+            "item 1)")
     from repro_torch.runtime.solvers import solve
     vol, _report = solve(
         projections, geom, method, n_iters=o.n_iters, relax=o.relax,
         x0=o.x0, tv_weight=o.tv_weight, tv_inner=o.tv_inner,
         oversample=o.oversample, variant=o.variant, nb=o.nb,
         interpret=o.interpret, proj_batch=o.proj_batch,
-        schedule=o.schedule, precision=o.precision, device=device,
-        **o.kernel_options_dict())
+        schedule=o.schedule, precision=o.precision, tuning=o.tuning,
+        device=device, **o.kernel_options_dict())
     return vol

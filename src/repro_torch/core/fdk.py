@@ -84,18 +84,40 @@ def fdk_reconstruct(projections, geom: CTGeometry,
     their way into the back-projector; filtering, weights, accumulators
     and the output stay float32.
 
-    ``tuning``, ``service``, ``devices`` and ``variant="auto"`` raise
-    ``NotImplementedError``: they wait in ROADMAP.md.
+    ``variant="auto"`` (or an explicit ``tuning=`` cache or path)
+    resolves the whole configuration, executor-level ``pipeline``
+    included, from the measured autotuner's persisted winners for this
+    device (``runtime.autotune``; a miss falls back to exactly the
+    heuristic plan, and planning never measures: ``autotune`` populates
+    the cache). An explicit ``pipeline`` overrides the cached one.
+
+    ``service`` and ``devices`` raise ``NotImplementedError``: they wait
+    in ROADMAP.md.
     """
     from repro_torch.runtime.executor import PlanExecutor
 
-    for name, value, item in (("service", service, "2"),
-                              ("devices", devices, "3"),
-                              ("tuning", tuning, "1")):
+    for name, value, item in (("service", service, "1"),
+                              ("devices", devices, "2")):
         if value is not None:
             raise NotImplementedError(
                 f"{name}= is not ported to repro_torch yet (ROADMAP.md "
                 f"queue 1 item {item})")
+    if variant == "auto" or tuning is not None:
+        # lookup-only tuned resolution: the config also carries the
+        # executor-level pipeline knobs the plan cannot
+        from repro_torch.runtime.autotune import resolve_config
+        cfg = resolve_config(
+            geom, variant, cache=tuning, device=device, nb=nb,
+            interpret=interpret, tiling=tiling, memory_budget=memory_budget,
+            proj_batch=proj_batch, out=out, schedule=schedule,
+            precision=precision, **kernel_options)
+        if pipeline is None:
+            ex = PlanExecutor.from_config(geom, cfg, device=device)
+        else:                         # an explicit override beats the cache
+            ex = PlanExecutor(geom, cfg.build_plan(geom), pipeline=pipeline,
+                              pipeline_depth=cfg.pipeline_depth, tuned=cfg,
+                              device=device)
+        return ex.reconstruct(projections)
     plan = _build_plan(geom, variant, nb=nb, interpret=interpret,
                        tiling=tiling, memory_budget=memory_budget,
                        proj_batch=proj_batch, out=out, schedule=schedule,

@@ -125,6 +125,11 @@ class KernelSpec:
         an in-kernel loop that stages ``nb`` projections per step. The
         planner defaults the ``proj_loop`` option ON for specs that
         advertise it.
+    tuning_space : the option axes the autotuner (``runtime.autotune``)
+        may flip when it searches this kernel's configuration space, as
+        ``((option, (candidate values, ...)), ...)``. Every key must be
+        in ``options``; heuristic defaults stay with the planner, this
+        only widens the measured search.
     """
 
     name: str
@@ -134,6 +139,7 @@ class KernelSpec:
     slab_safe_fallback: Optional[str] = None
     backend: str = "torch"
     proj_loop: bool = False
+    tuning_space: Tuple[Tuple[str, Tuple], ...] = ()
 
     @property
     def uses_symmetry(self) -> bool:
@@ -147,6 +153,11 @@ class KernelSpec:
 
 
 _PL_OPTS = frozenset({"nb", "interpret", "block", "proj_loop"})
+
+# the CUDA kernels expose the fused in-kernel projection loop (K2/K4/K6
+# against K1/K3/K5) as a measured tuning axis: the planner defaults it
+# ON, and whether it wins is what runtime.autotune measures
+_PL_TUNING = (("proj_loop", (True, False)),)
 
 REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
     KernelSpec("baseline", _baseline_adapter, (), backend="reference"),
@@ -168,13 +179,13 @@ REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
                 "localmem", "prefetch"),
                options=_PL_OPTS,
                slab_safe_fallback="subline_batch_mp", backend="cuda",
-               proj_loop=True),
+               proj_loop=True, tuning_space=_PL_TUNING),
     KernelSpec("onehot_pl", _onehot_cuda,
                ("transpose", "share", "symmetry", "subline", "batch",
                 "localmem", "prefetch", "mxu-interp"),
                options=_PL_OPTS | {"k_chunk"},
                slab_safe_fallback="subline_batch_mp", backend="cuda",
-               proj_loop=True),
+               proj_loop=True, tuning_space=_PL_TUNING),
     # the band schedule is recomputed from the matrices on every call,
     # as in the reference
     KernelSpec("banded_pl", _banded_cuda,
@@ -182,7 +193,7 @@ REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
                 "localmem", "prefetch", "banded-prefetch"),
                options=_PL_OPTS | {"bw"},
                slab_safe_fallback="subline_batch_mp", backend="cuda",
-               proj_loop=True),
+               proj_loop=True, tuning_space=_PL_TUNING),
 )}
 
 #: variants of the JAX package that this package does not carry yet
@@ -213,6 +224,11 @@ def _validate_registry() -> None:
             raise ValueError(
                 f"{spec.name!r} advertises proj_loop but does not accept "
                 f"the 'proj_loop' call option")
+        bad = [k for k, _ in spec.tuning_space if k not in spec.options]
+        if bad:
+            raise ValueError(
+                f"{spec.name!r} tuning_space keys {bad} are not accepted "
+                f"call options (KernelSpec.options)")
 
 
 _validate_registry()

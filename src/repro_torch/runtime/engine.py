@@ -95,8 +95,10 @@ class TiledReconstructor:
         self.recon_plan: ReconPlan = plan_reconstruction(
             geom, variant, tile_shape=tile_shape,
             memory_budget=memory_budget, nb=nb, proj_batch=proj_batch,
-            out=out, interpret=interpret, schedule=schedule,
+            out=out, interpret=interpret, schedule=schedule, device=device,
             **kernel_options)
+        # variant="auto" resolves through the tuning cache of this
+        # device's fingerprint in the planner; record the resolved name
         self.variant = self.recon_plan.variant
         self._executor = PlanExecutor(geom, self.recon_plan, cache=cache,
                                       pipeline=pipeline, device=device)
@@ -158,4 +160,4 @@ class TiledReconstructor:
     def backproject_distributed(self, img_t, mats, mesh, **_):
         raise NotImplementedError(
             "backproject_distributed is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1 item 3)")
+            "(ROADMAP.md queue 1 item 2)")

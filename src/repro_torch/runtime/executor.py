@@ -32,9 +32,11 @@ Precision rides the plan: ``precision="bf16"`` wraps every program so
 that projection samples enter the kernel rounded to bfloat16 while the
 matrices, weights, accumulators and the output stay float32
 (:func:`_precision_adapter`). Solver plans run here too, driven by
-``runtime.solvers.IterativeExecutor``. Request batching, streaming
-ingest and the multi-device fleet wait in ROADMAP.md and raise
-``NotImplementedError`` here.
+``runtime.solvers.IterativeExecutor``. Telemetry spans (``compile``,
+``filter.chunk``, ``step.dispatch`` with its roofline args, and
+``flush`` on the flusher thread) ride every walk (``runtime.telemetry``).
+Request batching, streaming ingest and the multi-device fleet wait in
+ROADMAP.md and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -52,12 +54,14 @@ from repro_torch.core import backproject as bp
 from repro_torch.core.filtering import fdk_filter_chunk
 from repro_torch.core.geometry import CTGeometry, projection_matrices
 from repro_torch.core.tiling import (
-    TileSpec, pad_projection_batch, plan_proj_chunks, translate_matrices,
+    TileSpec, pad_projection_batch, plan_proj_chunks, tile_working_set_bytes,
+    translate_matrices,
 )
 from repro_torch.core.variants import get_spec
+from repro_torch.runtime import telemetry
 from repro_torch.runtime.planner import (
     PlanStep, ReconPlan, StepMajorSchedule, build_step_major,
-    resolve_tile_variant,
+    resolve_tile_variant, step_cost,
 )
 
 
@@ -132,7 +136,10 @@ class ProgramCache:
             if prog is not None:
                 self.hits += 1
                 return prog
-        prog = builder()
+        # the span wraps builder() and nothing else, so the "compile"
+        # span count equals self.misses exactly
+        with telemetry.span("compile", cat="compile", key=repr(key)):
+            prog = builder()
         with self._lock:
             self._programs.setdefault(key, prog)
             self.misses += 1
@@ -303,10 +310,11 @@ class _AsyncFlushQueue:
                     return
                 if self._error is None:   # keep consuming after a failure
                     writes, copied = item
-                    if copied is not None:
-                        copied.synchronize()
-                    for sl, host in writes:
-                        _add_host(self._vol, sl, host)
+                    with telemetry.span("flush", n_writes=len(writes)):
+                        if copied is not None:
+                            copied.synchronize()
+                        for sl, host in writes:
+                            _add_host(self._vol, sl, host)
             except BaseException as exc:   # surfaced at put()/close()
                 self._error = exc
             finally:
@@ -325,6 +333,26 @@ class _AsyncFlushQueue:
         self._thread.join()
         if self._error is not None:
             raise self._error
+
+
+# 8 fused multiply-adds per voxel-view update: the repo's
+# "ct-backproject" cost model (model_flops = 8 * vol^3 * n_views), applied
+# per tile step so trace annotations and the roofline tell one story
+_FLOPS_PER_UPDATE = 8.0
+
+
+def _step_roofline(plan: ReconPlan, step: PlanStep, n_views: int) -> dict:
+    """Span args for one step dispatch: modeled bytes moved (the
+    planner's tile working-set model, ``core.tiling.
+    tile_working_set_bytes``) and FLOPs (``_FLOPS_PER_UPDATE`` per
+    voxel-view update over :func:`~repro_torch.runtime.planner.step_cost`
+    voxels), plus the resulting arithmetic intensity."""
+    ws = int(tile_working_set_bytes(step.call_shape, plan.det_shape_wh,
+                                    nb=plan.nb))
+    flops = _FLOPS_PER_UPDATE * step_cost(step) * int(n_views)
+    return {"bytes": ws, "flops": flops,
+            "ai_flop_per_byte": round(flops / max(ws, 1), 3),
+            "voxels": int(step_cost(step)), "n_views": int(n_views)}
 
 
 class _FilteredChunkProducer:
@@ -351,8 +379,10 @@ class _FilteredChunkProducer:
         """Filtered ``(img_c, mat_c)`` of chunk ``c`` (memoized)."""
         if c not in self._memo:
             s0, s1 = self._chunks[c]
-            self._memo[c] = self._ex._chunk_inputs(
-                self._projections, self._mat_p, s0, s1)
+            with telemetry.span("filter.chunk", chunk=c,
+                                n_views=int(s1 - s0)):
+                self._memo[c] = self._ex._chunk_inputs(
+                    self._projections, self._mat_p, s0, s1)
         return self._memo[c]
 
     def drop(self, c: int) -> None:
@@ -396,28 +426,45 @@ class PlanExecutor:
     most ``pipeline_depth`` steps queued). Async changes only WHEN the
     host adds happen, never their order, so the output is bit-identical;
     it engages where the plan accumulates on the host.
+
+    The executor can also be built straight from an autotuned winner:
+    :meth:`from_config` takes a ``runtime.autotune.TunedConfig`` and
+    keeps it as ``.tuned`` (provenance; None = heuristic knobs).
     """
 
     def __init__(self, geom: CTGeometry, plan: ReconPlan,
                  cache: Optional[ProgramCache] = None, *,
                  pipeline: str = "sync", pipeline_depth: int = 2,
-                 fleet=None, device=None):
+                 tuned=None, fleet=None, device=None):
         if pipeline not in ("sync", "async"):
             raise ValueError(
                 f"pipeline must be 'sync' or 'async', got {pipeline!r}")
         if fleet is not None:
-            raise _unported("fleet execution", "3")
+            raise _unported("fleet execution", "2")
         self.device = resolve_device(device)
         self.geom = geom
         self.plan = plan
         self._dtype = _plan_dtype(plan)
         if plan.ingest != "offline":
-            raise _unported("ingest='stream'", "2")
+            raise _unported("ingest='stream'", "1")
         if plan.request_batch != 1:
-            raise _unported("request batching", "2")
+            raise _unported("request batching", "1")
         self.cache = cache if cache is not None else default_program_cache()
         self.pipeline = pipeline
         self.pipeline_depth = int(pipeline_depth)
+        self.tuned = tuned    # TunedConfig provenance, None = heuristic
+
+    @classmethod
+    def from_config(cls, geom: CTGeometry, config,
+                    cache: Optional[ProgramCache] = None, *,
+                    device=None) -> "PlanExecutor":
+        """Executor for a resolved ``runtime.autotune.TunedConfig``: the
+        config plans itself (pure) and carries the executor-level knobs
+        (``pipeline``/``pipeline_depth``) the plan cannot."""
+        return cls(geom, config.build_plan(geom), cache=cache,
+                   pipeline=config.pipeline,
+                   pipeline_depth=config.pipeline_depth, tuned=config,
+                   device=device)
 
     # ---- compile-stage access -------------------------------------------
 
@@ -515,6 +562,17 @@ class PlanExecutor:
                                     depth=self.pipeline_depth)
         return None
 
+    def _step_span(self, step: PlanStep, n_views: int, **extra):
+        """Telemetry span for one step's launches, roofline-annotated
+        (bytes / FLOPs / arithmetic intensity, computed only when
+        tracing is live). It measures the enqueue on the host, and names
+        a ``record_function`` range on the profiler's timeline."""
+        sp = telemetry.span("step.dispatch", nvtx=True)
+        if sp.live:
+            sp.set(variant=step.variant, call_shape=list(step.call_shape),
+                   **_step_roofline(self.plan, step, n_views), **extra)
+        return sp
+
     @staticmethod
     def _flush_host(vol: np.ndarray, writes) -> None:
         for sl, piece in writes:
@@ -546,9 +604,11 @@ class PlanExecutor:
         sequential flush order, so the output stays bit-identical.
         """
         pending = ()
+        n_views = int(img_c.shape[0])
         for step in self.plan.steps:
             prog = self._program(step.variant, step.call_shape)
-            out = prog(img_c, self._translated(mat_c, step))
+            with self._step_span(step, n_views, schedule="chunk"):
+                out = prog(img_c, self._translated(mat_c, step))
             pending = self._place(vol, self._step_writes(step, out), flush,
                                   pending)
         if self.plan.out == "host":
@@ -571,7 +631,8 @@ class PlanExecutor:
                 step = work.step
                 prog = self._scan_program(step.variant, step.call_shape,
                                           sched)
-                out = prog(img_s, self._translated(mat_s, step))
+                with self._step_span(step, sched.n_scan, schedule="step"):
+                    out = prog(img_s, self._translated(mat_s, step))
                 pending = self._place(vol, self._step_writes(step, out),
                                       flush, pending)
         finally:
@@ -591,7 +652,10 @@ class PlanExecutor:
             prog = self._program(step.variant, step.call_shape)
             acc = None
             for c in range(n_chunks):
-                part = prog(*chunk_inputs(c))
+                img_c, mat_c = chunk_inputs(c)
+                with self._step_span(step, int(img_c.shape[0]),
+                                     schedule="chunk"):
+                    part = prog(img_c, mat_c)
                 acc = part if acc is None else acc.add_(part)
             return acc
         vol = self._alloc()
@@ -611,8 +675,9 @@ class PlanExecutor:
         :meth:`_execute_step_major`."""
         if self._single_full_call() and self.plan.out == "device":
             step = self.plan.steps[0]
-            return self._scan_program(step.variant, step.call_shape,
-                                      sched)(img_s, mat_s)
+            prog = self._scan_program(step.variant, step.call_shape, sched)
+            with self._step_span(step, sched.n_scan, schedule="step"):
+                return prog(img_s, mat_s)
         return self._execute_step_major(self._alloc(), img_s, mat_s, sched)
 
     # ---- full-volume drivers --------------------------------------------
@@ -709,10 +774,10 @@ class PlanExecutor:
     # ---- not ported yet ---------------------------------------------------
 
     def open_stream(self, **_):
-        raise _unported("open_stream (online ingest)", "2")
+        raise _unported("open_stream (online ingest)", "1")
 
     def execute_batch(self, projections_seq):
-        raise _unported("execute_batch (request batching)", "2")
+        raise _unported("execute_batch (request batching)", "1")
 
     def execute_distributed(self, img_t, mats, mesh, **_):
-        raise _unported("execute_distributed", "3")
+        raise _unported("execute_distributed", "2")

@@ -39,6 +39,7 @@ package runs the untiled and tiled single-device plans (ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 from repro_torch.core.geometry import CTGeometry
@@ -47,6 +48,7 @@ from repro_torch.core.tiling import (
     plan_z_units, tile_working_set_bytes,
 )
 from repro_torch.core.variants import KernelSpec, get_spec
+from repro_torch.runtime import telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -475,21 +477,22 @@ def _plan_steps(vol_shape_xyz: Tuple[int, int, int],
     return tuple(steps)
 
 
-def plan_reconstruction(geom: CTGeometry,
-                        variant: str = "algorithm1_mp", *,
-                        tile_shape: Optional[Sequence[int]] = None,
-                        memory_budget: Optional[int] = None,
-                        nb: int = 8,
-                        proj_batch: Optional[int] = None,
-                        out: str = "host",
-                        interpret: bool = True,
-                        schedule: Optional[str] = None,
-                        request_batch: int = 1,
-                        ingest: str = "offline",
-                        precision: str = "f32",
-                        solver: str = "none",
-                        tuning=None,
-                        **kernel_options) -> ReconPlan:
+def _plan_reconstruction_impl(geom: CTGeometry,
+                              variant: str = "algorithm1_mp", *,
+                              tile_shape: Optional[Sequence[int]] = None,
+                              memory_budget: Optional[int] = None,
+                              nb: int = 8,
+                              proj_batch: Optional[int] = None,
+                              out: str = "host",
+                              interpret: bool = True,
+                              schedule: Optional[str] = None,
+                              request_batch: int = 1,
+                              ingest: str = "offline",
+                              precision: str = "f32",
+                              solver: str = "none",
+                              tuning=None,
+                              device=None,
+                              **kernel_options) -> ReconPlan:
     """Build the :class:`ReconPlan` every entry point executes.
 
     Parameters mirror the façades; validation for ALL of them lives here:
@@ -551,6 +554,11 @@ def plan_reconstruction(geom: CTGeometry,
         replaces the heuristic knobs; a miss (or a missing/corrupt
         cache file) falls back to exactly the heuristic plan this
         function builds today. Planning never measures.
+    device : the device whose hardware fingerprint keys that lookup
+        (``None`` = the CUDA card, which raises without one; pass
+        ``"cpu"`` for the CPU's winners). Only read with
+        ``variant="auto"`` or ``tuning``: a plan itself is
+        device-independent.
     kernel_options : extra per-variant knobs (e.g. ``block=``, ``bw=``),
         validated against the variant's ``KernelSpec.options``. The
         ``proj_loop`` fused in-kernel projection loop is resolved here
@@ -566,10 +574,14 @@ def plan_reconstruction(geom: CTGeometry,
         if variant == "auto":
             variant = "algorithm1_mp"
     if variant == "auto" or tuning is not None:
-        raise NotImplementedError(
-            "variant='auto' and tuning= resolve through the measured "
-            "autotuner, which repro_torch does not carry yet (ROADMAP.md "
-            "queue 1 item 1)")
+        # lookup-only: the autotuner owns fingerprinting + the cache
+        from repro_torch.runtime.autotune import resolve_plan
+        return resolve_plan(
+            geom, variant=variant, tuning=tuning, tile_shape=tile_shape,
+            memory_budget=memory_budget, nb=nb, proj_batch=proj_batch,
+            out=out, interpret=interpret, schedule=schedule,
+            request_batch=request_batch, precision=precision,
+            solver=solver, device=device, **kernel_options)
     spec = get_spec(variant)
     if precision not in ("f32", "bf16"):
         raise ValueError(
@@ -665,3 +677,18 @@ def plan_reconstruction(geom: CTGeometry,
             f"{int(memory_budget)} B — drop one of the two or enlarge "
             f"the budget")
     return plan
+
+
+@functools.wraps(_plan_reconstruction_impl)
+def plan_reconstruction(geom: CTGeometry, variant: str = "algorithm1_mp",
+                        **kwargs) -> ReconPlan:
+    # every plan build (heuristic or tuning lookup: the lookup re-enters
+    # here for its heuristic base, which nests a second span) is one
+    # "plan.build" span; the impl's knobs past ``variant`` are
+    # keyword-only, so the pass-through is lossless
+    with telemetry.span("plan.build", variant=str(variant)):
+        return _plan_reconstruction_impl(geom, variant, **kwargs)
+
+
+plan_reconstruction.__name__ = "plan_reconstruction"
+plan_reconstruction.__qualname__ = "plan_reconstruction"

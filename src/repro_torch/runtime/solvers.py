@@ -31,17 +31,17 @@ through the reduced-precision data path (bf16-rounded samples, f32
 accumulators): the forward program rounds the volume, the back-projection
 programs the projections.
 
-The JAX package also emits telemetry spans (``solve``, ``solve.iter``)
-and a report ``emit()``, and serves solver plans from its service's
-buckets with a fleet; those wait for ROADMAP.md queue 1 items 1
-(telemetry) and 2-3 (serving, the fleet). The duck-type surface the
-service will need (``warm`` / ``reconstruct`` / ``pipeline`` /
-``tuned``) is here.
+Each solve is one ``solve`` span with one ``solve.iter`` span per
+iteration (``runtime.telemetry``), and :class:`SolveReport` has the
+shared ``as_dict()``/``emit()`` report contract. The JAX package also
+serves solver plans from its service's buckets with a fleet; those wait
+for ROADMAP.md queue 1 items 1-2 (serving, the fleet). The duck-type
+surface the service will need (``warm`` / ``reconstruct`` /
+``pipeline`` / ``tuned``) is here.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
@@ -55,8 +55,8 @@ from repro_torch.core.forward import (forward_project_kernel, march_params,
                                       view_frames)
 from repro_torch.core.geometry import CTGeometry, projection_matrices
 
-from .executor import (PlanExecutor, ProgramCache, _unported,
-                       default_program_cache)
+from . import telemetry
+from .executor import PlanExecutor, ProgramCache, default_program_cache
 from .planner import ReconPlan, plan_reconstruction
 
 SOLVERS = ("sart", "os_sart", "cgls", "fista_tv")
@@ -70,11 +70,11 @@ _EPS_VOL = 1e-12    # floor for BP(1) voxel sums
 
 
 @dataclass
-class SolveReport:
+class SolveReport(telemetry.EmitMixin):
     """What one solve did: convergence trace + program accounting.
 
-    ``emit()`` (the JAX package's telemetry hook) waits for the telemetry
-    port, ROADMAP.md queue 1 item 1."""
+    ``EmitMixin`` gives it the shared ``as_dict()``/``emit()`` contract
+    of the runtime's reports."""
 
     method: str
     n_iters: int
@@ -90,9 +90,6 @@ class SolveReport:
     compiles_warm: int = 0
     wall_s: float = 0.0
     extras: Dict[str, float] = field(default_factory=dict)
-
-    def as_dict(self) -> dict:
-        return dataclasses.asdict(self)
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +148,9 @@ class IterativeExecutor:
     Construct once per ``(geom, plan)``; every ``reconstruct`` call
     reuses the same programs and normalizer volumes. Duck-types the
     :class:`PlanExecutor` surface a serving layer expects from a bucket
-    executor. ``device=None`` means the CUDA card.
+    executor. ``device=None`` means the CUDA card. ``tuned`` is the
+    ``runtime.autotune.TunedConfig`` the plan came from (provenance;
+    None = heuristic knobs).
     """
 
     #: solver buckets never coalesce across requests: each solve is a
@@ -168,13 +167,12 @@ class IterativeExecutor:
                 f"IterativeExecutor needs a solver plan; got "
                 f"solver={plan.solver!r} (plan FDK runs with "
                 f"PlanExecutor directly)")
-        if tuned is not None:
-            raise _unported("tuned= (autotuned executors)", "1")
         self.geom = geom
         self.plan = plan
         self.oversample = float(oversample)
         self.ex = PlanExecutor(geom, plan, cache=cache, pipeline=pipeline,
-                               pipeline_depth=pipeline_depth, device=device)
+                               pipeline_depth=pipeline_depth, tuned=tuned,
+                               device=device)
         self.device = self.ex.device
         self.cache = self.ex.cache
         self.last_report: Optional[SolveReport] = None
@@ -198,7 +196,7 @@ class IterativeExecutor:
 
     @property
     def tuned(self):
-        return None
+        return self.ex.tuned
 
     @property
     def _dtype(self):
@@ -361,7 +359,9 @@ class IterativeExecutor:
                   else int(tv_inner),
                   oversample=self.oversample if oversample is None
                   else float(oversample))
-        x, residuals, extras = loops[method](projections, x, kw, marks)
+        with telemetry.span("solve", method=method, n_iters=n_iters,
+                            precision=self.plan.precision):
+            x, residuals, extras = loops[method](projections, x, kw, marks)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -385,12 +385,13 @@ class IterativeExecutor:
         norm = self._bp_ones_for(None, None)
         residuals = []
         for i in range(kw["n_iters"]):
-            est = self._fp(x, oversample=ov)
-            resid = proj - est
-            residuals.append(float(torch.linalg.vector_norm(resid)))
-            x = x + kw["relax"] * self._bp(resid / ray_len) / norm
-            if i == 0:
-                marks["after_iter1"] = self.cache.stats()["misses"]
+            with telemetry.span("solve.iter", method="sart", i=i):
+                est = self._fp(x, oversample=ov)
+                resid = proj - est
+                residuals.append(float(torch.linalg.vector_norm(resid)))
+                x = x + kw["relax"] * self._bp(resid / ray_len) / norm
+                if i == 0:
+                    marks["after_iter1"] = self.cache.stats()["misses"]
         return x, residuals, {}
 
     def _solve_os_sart(self, proj, x, kw, marks):
@@ -402,16 +403,17 @@ class IterativeExecutor:
         subsets = self.plan.subsets
         residuals = []
         for i in range(kw["n_iters"]):
-            sweep_sq = 0.0
-            for s0, s1 in subsets:
-                est = self._fp(x, s0, s1, oversample=ov)
-                resid = proj[s0:s1] - est
-                sweep_sq += float(torch.sum(resid * resid))
-                upd = self._bp(resid / ray_len[s0:s1], s0, s1)
-                x = x + kw["relax"] * upd / self._bp_ones_for(s0, s1)
-            residuals.append(math.sqrt(sweep_sq))
-            if i == 0:
-                marks["after_iter1"] = self.cache.stats()["misses"]
+            with telemetry.span("solve.iter", method="os_sart", i=i):
+                sweep_sq = 0.0
+                for s0, s1 in subsets:
+                    est = self._fp(x, s0, s1, oversample=ov)
+                    resid = proj[s0:s1] - est
+                    sweep_sq += float(torch.sum(resid * resid))
+                    upd = self._bp(resid / ray_len[s0:s1], s0, s1)
+                    x = x + kw["relax"] * upd / self._bp_ones_for(s0, s1)
+                residuals.append(math.sqrt(sweep_sq))
+                if i == 0:
+                    marks["after_iter1"] = self.cache.stats()["misses"]
         return x, residuals, {"subsets": float(len(subsets))}
 
     def _solve_cgls(self, proj, x, kw, marks):
@@ -432,18 +434,19 @@ class IterativeExecutor:
         gamma = torch.sum(s * s)
         residuals = []
         for i in range(kw["n_iters"]):
-            q = self._fp(p, oversample=ov)
-            alpha = torch.sum(r * q) / torch.clamp(torch.sum(q * q),
-                                                   min=_EPS_VOL)
-            x = x + alpha * p
-            r = r - alpha * q
-            residuals.append(float(torch.linalg.vector_norm(r)))
-            s = self._bp(r)
-            gamma_new = torch.sum(s * s)
-            p = s + (gamma_new / torch.clamp(gamma, min=_EPS_VOL)) * p
-            gamma = gamma_new
-            if i == 0:
-                marks["after_iter1"] = self.cache.stats()["misses"]
+            with telemetry.span("solve.iter", method="cgls", i=i):
+                q = self._fp(p, oversample=ov)
+                alpha = torch.sum(r * q) / torch.clamp(torch.sum(q * q),
+                                                       min=_EPS_VOL)
+                x = x + alpha * p
+                r = r - alpha * q
+                residuals.append(float(torch.linalg.vector_norm(r)))
+                s = self._bp(r)
+                gamma_new = torch.sum(s * s)
+                p = s + (gamma_new / torch.clamp(gamma, min=_EPS_VOL)) * p
+                gamma = gamma_new
+                if i == 0:
+                    marks["after_iter1"] = self.cache.stats()["misses"]
         return x, residuals, {}
 
     def _solve_fista_tv(self, proj, x, kw, marks):
@@ -474,14 +477,15 @@ class IterativeExecutor:
         y, t = x, 1.0
         residuals = []
         for i in range(kw["n_iters"]):
-            resid = self._fp(y, oversample=ov) - proj
-            residuals.append(float(torch.linalg.vector_norm(resid)))
-            x_new = prox(y - step * self._bp(resid), lam)
-            t_new = 0.5 * (1.0 + math.sqrt(1.0 + 4.0 * t * t))
-            y = x_new + ((t - 1.0) / t_new) * (x_new - x)
-            x, t = x_new, t_new
-            if i == 0:
-                marks["after_iter1"] = self.cache.stats()["misses"]
+            with telemetry.span("solve.iter", method="fista_tv", i=i):
+                resid = self._fp(y, oversample=ov) - proj
+                residuals.append(float(torch.linalg.vector_norm(resid)))
+                x_new = prox(y - step * self._bp(resid), lam)
+                t_new = 0.5 * (1.0 + math.sqrt(1.0 + 4.0 * t * t))
+                y = x_new + ((t - 1.0) / t_new) * (x_new - x)
+                x, t = x_new, t_new
+                if i == 0:
+                    marks["after_iter1"] = self.cache.stats()["misses"]
         return x, residuals, {"lipschitz": L}
 
 
@@ -500,8 +504,8 @@ def solver_executor(geom: CTGeometry, plan: ReconPlan,
 
     Keyed by the plan's bucket key + the forward-pass oversampling +
     cache identity + the device, so repeated façade calls (``sart_step``
-    once per outer iteration, say) land on the SAME executor: normalizers
-    and programs built once, every later call warm."""
+    once per outer iteration, say) land on the SAME executor:
+    normalizers and programs built once, every later call warm."""
     c = cache if cache is not None else default_program_cache()
     dev = resolve_device(device)
     key = (geom, plan.bucket_key, oversample, pipeline, id(c), str(dev))
@@ -525,18 +529,23 @@ def solve(projections, geom: CTGeometry, method: str = "sart", *,
           nb: int = 8, interpret: bool = True,
           proj_batch: Optional[int] = None, schedule: Optional[str] = None,
           precision: str = "f32", cache: Optional[ProgramCache] = None,
-          device=None, **kernel_options
+          tuning=None, device=None, **kernel_options
           ) -> Tuple[torch.Tensor, SolveReport]:
     """One-call iterative reconstruction: plan, reuse the persistent
     executor, run the loop. Returns ``(volume_zyx, SolveReport)``.
     ``device=None`` means the CUDA card; pass ``device="cpu"`` for the
-    plain PyTorch path."""
+    plain PyTorch path.
+
+    ``variant="auto"`` or a ``tuning`` cache (a ``TuningCache`` or a
+    path) resolves the plan by lookup of the autotuner's persisted
+    winner for this device and request (``autotune(..., method=...)``
+    stores it); a miss runs the heuristic plan."""
     if method not in SOLVERS:
         raise ValueError(f"method must be one of {SOLVERS}, got {method!r}")
     plan = plan_reconstruction(
         geom, variant, nb=nb, interpret=interpret, proj_batch=proj_batch,
-        out="device", schedule=schedule, precision=precision, solver=method,
-        **kernel_options)
+        out="device", schedule=schedule, precision=precision,
+        solver=method, tuning=tuning, device=device, **kernel_options)
     ex = solver_executor(geom, plan, cache, oversample=oversample,
                          device=device)
     return ex.solve(projections, n_iters=n_iters, relax=relax, x0=x0,

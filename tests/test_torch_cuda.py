@@ -675,3 +675,37 @@ def test_sart_step_and_reconstruct_on_card(cuda):
                                   variant="subline_pl", n_iters=2,
                                   precision="bf16")
     assert vol.device.type == "cuda" and bool(torch.isfinite(vol).all())
+
+
+def test_autotune_auto_measures_the_cuda_variants(cuda, tmp_path):
+    """variant="auto" on the card plans subline_pl untuned, measures the
+    three CUDA variants (the ladder's first three there) with the default
+    budget and persists a winner that reconstruct resolves; its volume is within 1e-5 of algorithm1_mp (or within the
+    bf16 contract of 2e-2 where the search picked precision="bf16")."""
+    import repro_torch
+    from repro_torch.runtime import autotune as at
+    from repro_torch.runtime import telemetry
+    g = standard_geometry(n=32, n_det=48, n_proj=16)
+    projs = np.random.RandomState(7).rand(16, g.nh, g.nw).astype(np.float32)
+    p = torch.from_numpy(projs).cuda()
+    path = str(tmp_path / "tuning.json")
+    untuned = at.resolve_config(g, "auto", cache=path)
+    assert (untuned.source, untuned.variant) == ("heuristic", "subline_pl")
+    with telemetry.tracing():
+        cfg = at.autotune(g, "auto", cache=path, projections=p, iters=1,
+                          variants=("subline_pl", "onehot_pl", "banded_pl"))
+    measured = [e["args"]["variant"] for e in telemetry.events()
+                if e["name"] == "autotune.candidate"]
+    telemetry.clear()
+    assert measured[0] == "subline_pl"        # the card's base: a kernel
+    assert {"subline_pl", "onehot_pl", "banded_pl"} <= set(measured)
+    counts = _launch_counts()
+    for kernel in ("backproject_subline_fused", "backproject_onehot_fused",
+                   "backproject_banded_fused"):
+        assert counts[kernel] > 0, counts
+    assert at.hardware_fingerprint()[0] == "cuda"
+    assert at.resolve_config(g, "auto", cache=path).source == "cache"
+    vol = repro_torch.reconstruct(p, g, variant="auto", tuning=path)
+    ref = repro_torch.reconstruct(p, g, variant="algorithm1_mp")
+    bar = BAR if cfg.precision == "f32" else 2e-2
+    assert rel_rmse(_cpu(vol), _cpu(ref)) < bar

@@ -213,13 +213,17 @@ def test_options_fields_match_jax():
 
 
 # precision="bf16" is ported: its two cases (kw0, kw6) became unported
-# combinations that still name bf16 and run in test_bf16_options_run
+# combinations that still name bf16 and run in test_bf16_options_run;
+# variant="auto" and tuning= are ported too: their cases (kw0, kw1, kw2,
+# kw7) became combinations with service= or devices=, and the options
+# alone run in tests/test_torch_autotune.py
 @pytest.mark.parametrize("kw", [
-    dict(tiling=(8, 8, 8), precision="bf16", variant="auto"),
-    dict(memory_budget=1 << 20, tuning="cache.json"),
-    dict(tuning="cache.json"), dict(service=object()), dict(devices=2),
-    dict(pipeline="async", devices=2), dict(precision="bf16", devices=2),
-    dict(variant="auto"),
+    dict(tiling=(8, 8, 8), precision="bf16", variant="auto",
+         service=object()),
+    dict(memory_budget=1 << 20, tuning="cache.json", devices=2),
+    dict(tuning="cache.json", service=object()), dict(service=object()),
+    dict(devices=2), dict(pipeline="async", devices=2),
+    dict(precision="bf16", devices=2), dict(variant="auto", devices=2),
 ])
 def test_unported_options_raise(kw):
     _, t, p, _ = _problem("smoke")

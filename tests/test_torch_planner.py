@@ -105,11 +105,23 @@ def test_kernel_option_plans_equal_jax(variant, kw):
 @pytest.mark.parametrize("kw", [
     dict(variant="auto"), dict(tuning="cache.json"),
 ])
-def test_autotune_entry_raises(kw):
-    _, t = _geoms(16, 24, 8)
+def test_autotune_entry_raises(kw, tmp_path):
+    """The autotune entry resolves by lookup now (a miss plans the JAX
+    package's heuristic plan); it still raises where it must: on the
+    card's fingerprint without a card, and on an option no variant
+    takes."""
+    g, t = _geoms(16, 24, 8)
     variant = kw.pop("variant", "algorithm1_mp")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_plan(t, variant, **kw)
+    if "tuning" in kw:
+        kw["tuning"] = str(tmp_path / kw["tuning"])
+    assert _fields(t_plan(t, variant, device="cpu", **kw)) == \
+        _fields(j_plan(g, variant, **kw))
+    with pytest.raises(ValueError):
+        t_plan(t, variant, device="cpu", bogus_knob=1, **kw)
+    import torch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_plan(t, variant, **kw)
 
 
 @pytest.mark.parametrize("variant,kw", [
