@@ -72,7 +72,29 @@ resolving with zero measurements, held against ``algorithm1_mp`` (1e-5,
 or the bf16 contract where the search picked bf16); exact-mode tuning of
 the tiled host walk, bit for bit equal to the heuristic; a second
 process hitting the cache; a SART tune. Each kernel's launches in the
-phase join its row of the ``kernels`` line as ``launches_tune``.
+phase (its lane launches included) join its row of the ``kernels`` line
+as ``launches_tune``.
+
+Request batching, streaming and serving (phases ``[batch]``,
+``[stream]``, ``[service]``, after ``[tune]``): the rb-lane launches of
+K1-K6 (one launch, the grid's z the lane) at the sweep shapes with rb =
+3, odd nz and bands that drop lines, each lane equal to the solo launch
+bit for bit and to the plain version within the sweep's bars; each lane
+equal to its solo launch at P5 (rb = 2) and the
+rb = 4 lane launch timed (``lane_ms``, per lane);
+``PlanExecutor.execute_batch`` at P5 with rb = 4 for ``subline_pl``,
+``onehot_pl`` and ``banded_pl`` at nb = 8 and 1, every lane equal to
+``reconstruct`` of that request bit for bit with one lane launch per step
+and chunk, timed against 4 sequential calls; the tiled walks, host
+async and device sync, with rb = 2; a paced P5 stream (a producer thread
+pushes 512 views in 1 s), ``close()`` equal to the chunk-major
+``reconstruct``, its tail and hidden fraction; two sessions folded as
+one lane launch per step; a ``ReconService(max_inflight=2,
+max_batch=4)`` burst of 8 requests over two
+warmed P5 buckets, each equal to its solo ``reconstruct``, no program
+built after warm-up, batches, occupancy and p50/p99 per bucket printed,
+and ``reconstruct(service=svc)`` routed. Their lane launches join each
+kernel's row as ``launches_batch``.
 
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
@@ -2188,6 +2210,480 @@ def phase_tune(seed: int) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# [batch], [stream], [service]: request batching, streaming and serving
+# --------------------------------------------------------------------------
+
+LANE_RB = 3                       # rb of the lane sweep
+LANE_RB_P5 = 4                    # rb of execute_batch and lane_ms at P5
+LANE_SWEEP = SWEEP                # the sweep's shapes, (13, 17, 5) with them
+# the lane form of each kernel's launch counter
+LANES = {name: f"{name}_lanes" for name in KERNELS}
+BATCH_VARIANTS = (("subline_pl", 8), ("subline_pl", 1), ("onehot_pl", 8),
+                  ("onehot_pl", 1), ("banded_pl", 8), ("banded_pl", 1))
+STREAM_CHUNK = 128                # views a chunk of the P5 stream
+SCAN_S = 1.0                      # the paced scanner: 512 views in 1 s
+SCAN_GROUP = 16                   # views a push
+BATCH_BUDGETS = (4 << 30, 16 << 30)   # the rb = 8 tile picker at P5
+
+
+def lane_launches() -> dict:
+    """The lane launches of K1-K6 since the last reset, by kernel row."""
+    n = launches()
+    return {name: n[lane] for name, lane in LANES.items()}
+
+
+def _lane_sweep_case(geom, seed, errs) -> int:
+    """K1-K6 lane launches (rb = LANE_RB) against the solo launches (bit
+    for bit) and the plain versions (the sweep's bars), K5/K6 also on
+    shifted bands that drop lines; returns the lane cases checked."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backproject import transpose_projections
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.kernels import ops
+    ks, ko, kb = launch_modules()
+    npj = geom.n_proj
+    rng = np.random.RandomState(seed)
+    img_b = torch.stack([transpose_projections(torch.from_numpy(
+        rng.rand(npj, geom.nh, geom.nw).astype(np.float32)).cuda())
+        for _ in range(LANE_RB)])
+    mats = projection_matrices(geom)
+    shape = geom.volume_shape_xyz
+    pshape = (-(-shape[0] // 4) * 4, -(-shape[1] // 8) * 8, shape[2])
+    families = (("subline", ops.backproject_subline_lanes,
+                 ops.backproject_subline, SUBLINE_PLAIN_BAR),
+                ("onehot", ops.backproject_onehot_lanes,
+                 ops.backproject_onehot, ONEHOT_PLAIN_BAR),
+                ("banded", ops.backproject_banded_lanes,
+                 ops.backproject_banded, BAR))
+
+    def plain_of(family, x, nb, loop):
+        """The family's plain version on the card, as the sweep holds it."""
+        if family == "subline":
+            return ks.backproject_subline_plain(x, mats, shape)
+        if family == "onehot":
+            return ko.backproject_onehot_plain(x, mats, shape)
+        group = nb if ks.fused_batch_ok(npj, nb, loop) else 1
+        img_x, band, bw = kb.band_schedule(x, mats, pshape, block=(4, 8),
+                                           bw=32, group=group)
+        return kb.backproject_banded_plain(
+            img_x, mats, band, pshape, block=(4, 8), bw=bw, nw=geom.nw,
+            group=group)[:shape[0], :shape[1]]
+
+    n = 0
+    for family, lanes, solo, bar in families:
+        for nb, loop in ((1, False), (npj, True)):
+            kernel = (f"backproject_{family}_fused" if loop
+                      else f"backproject_{family}_kernel")
+            out = lanes(img_b, mats, shape, nb=nb, proj_loop=loop)
+            for r in range(LANE_RB):
+                one = solo(img_b[r], mats, shape, nb=nb, proj_loop=loop)
+                require(torch.equal(out[r], one), f"lane {r} of the "
+                        f"{kernel} lane launch at {shape} is not bitwise "
+                        f"equal to its solo launch")
+                plain = plain_of(family, img_b[r], nb, loop)
+                err = rel_rmse(out[r], plain)
+                errs[kernel] = max(errs[kernel],
+                                   float((out[r] - plain).abs().max()))
+                require(err < bar, f"lane {r} of {kernel} at {shape}: "
+                        f"{err:.2e} from its plain version (bar {bar})")
+                n += 1
+    # K5/K6 lanes on bands of SHIFT_BW columns moved one place right: lines
+    # are dropped, as in the solo sweep's shifted case
+    img_bb = kb.band_layout_lanes(img_b, SHIFT_BW)
+    n_bands = img_bb.shape[2]
+    k1 = ks.backproject_subline_kernel_lanes(img_b, mats, pshape)
+    dropped = False
+    for group in (1, npj):
+        band, _ = kb.tile_bands(mats, *pshape[:2], 4, 8, SHIFT_BW, n_bands,
+                                geom.nw, group=group)
+        band = torch.clamp(band + 1, max=n_bands - 1)
+        kw = dict(block=(4, 8), bw=SHIFT_BW, nw=geom.nw)
+        if group == 1:
+            kernel = "backproject_banded_kernel"
+            out = kb.backproject_banded_kernel_lanes(img_bb, mats, band,
+                                                     pshape, **kw)
+        else:
+            kernel = "backproject_banded_fused"
+            out = kb.backproject_banded_fused_lanes(img_bb, mats, band,
+                                                    pshape, nb=group, **kw)
+        for r in range(LANE_RB):
+            plain = kb.backproject_banded_plain(img_bb[r], mats, band,
+                                                pshape, group=group, **kw)
+            err = rel_rmse(out[r], plain)
+            errs[kernel] = max(errs[kernel],
+                               float((out[r] - plain).abs().max()))
+            require(err < BAR, f"shifted-band lane {r} of {kernel}: "
+                    f"{err:.2e} from its plain version")
+            solo = (kb.backproject_banded_kernel(img_bb[r], mats, band,
+                                                 pshape, **kw)
+                    if group == 1 else
+                    kb.backproject_banded_fused(img_bb[r], mats, band,
+                                                pshape, nb=group, **kw))
+            require(torch.equal(out[r], solo), f"shifted-band lane {r} of "
+                    f"{kernel} is not bitwise equal to its solo launch")
+            dropped |= not torch.equal(out[r], k1[r])
+            n += 1
+    require(dropped, f"the shifted bands dropped no line at {shape}")
+    return n
+
+
+def phase_batch(seed: int, errs: dict, plain) -> tuple:
+    """The rb-lane launch of K1-K6 and ``PlanExecutor.execute_batch`` at
+    P5. Returns (lane launches of the phase's main-path runs by kernel
+    row, per-lane ms of an rb = LANE_RB_P5 lane launch at P5)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.ct_paper import get_problem
+    from repro_torch.core.backproject import transpose_projections
+    from repro_torch.core.filtering import fdk_filter_chunk
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.core.geometry import standard_geometry
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.executor import PlanExecutor
+    from repro_torch.runtime.planner import plan_reconstruction
+    ks, ko, kb = launch_modules()
+    t_phase = time.perf_counter()
+    card = card_line()
+
+    # (a) the lane sweep
+    n = 0
+    for i, (nn, det, npj) in enumerate(LANE_SWEEP):
+        n += _lane_sweep_case(standard_geometry(n=nn, n_det=det, n_proj=npj),
+                              seed + 100 + i, errs)
+    print(f"[batch] lane sweep, rb={LANE_RB}: {n} lanes of K1-K6 on "
+          f"{len(LANE_SWEEP)} shapes (odd nz (13, 17, 5) among them, and "
+          f"shifted bands that drop lines) equal their solo launches bit for "
+          f"bit and their plain versions within the sweep's bars")
+
+    # (b) each lane at P5 equals its solo launch, and the lane launch's time
+    geom = get_problem("P5").geometry()
+    shape = geom.volume_shape_xyz
+    rng = np.random.default_rng(seed + 7)
+    reqs = [torch.from_numpy(rng.random(geom.proj_shape_hw,
+                                        dtype=np.float32)).cuda()
+            for _ in range(LANE_RB_P5)]
+    mats = projection_matrices(geom)
+    img_b = torch.stack([transpose_projections(
+        fdk_filter_chunk(p, geom, geom.n_proj)) for p in reqs])
+    lane_calls = {
+        "backproject_subline_kernel": lambda x: ops.backproject_subline_lanes(
+            x, mats, shape, nb=1),
+        "backproject_subline_fused": lambda x: ops.backproject_subline_lanes(
+            x, mats, shape, nb=8, proj_loop=True),
+        "backproject_onehot_kernel": lambda x: ops.backproject_onehot_lanes(
+            x, mats, shape, nb=1),
+        "backproject_onehot_fused": lambda x: ops.backproject_onehot_lanes(
+            x, mats, shape, nb=8, proj_loop=True),
+        "backproject_banded_kernel": lambda x: ops.backproject_banded_lanes(
+            x, mats, shape, nb=1),
+        "backproject_banded_fused": lambda x: ops.backproject_banded_lanes(
+            x, mats, shape, nb=8, proj_loop=True)}
+    solo_calls = {
+        "backproject_subline_kernel": lambda x: ops.backproject_subline(
+            x, mats, shape, nb=1),
+        "backproject_subline_fused": lambda x: ops.backproject_subline(
+            x, mats, shape, nb=8, proj_loop=True),
+        "backproject_onehot_kernel": lambda x: ops.backproject_onehot(
+            x, mats, shape, nb=1),
+        "backproject_onehot_fused": lambda x: ops.backproject_onehot(
+            x, mats, shape, nb=8, proj_loop=True),
+        "backproject_banded_kernel": lambda x: ops.backproject_banded(
+            x, mats, shape, nb=1),
+        "backproject_banded_fused": lambda x: ops.backproject_banded(
+            x, mats, shape, nb=8, proj_loop=True)}
+    lane_ms = {}
+    for name in KERNELS:
+        out = lane_calls[name](img_b[:2])
+        for r in range(2):
+            require(torch.equal(out[r], solo_calls[name](img_b[r])),
+                    f"lane {r} of the {name} lane launch at P5, rb=2, is "
+                    f"not bitwise equal to its solo launch")
+        del out
+        ms = timed(lambda: lane_calls[name](img_b))
+        solo_ms = timed(lambda: solo_calls[name](img_b[0]))
+        lane_ms[name] = ms / LANE_RB_P5
+        print(f"[batch] P5 {KERNELS[name][0]}: lanes equal solo bit for "
+              f"bit (rb=2); rb={LANE_RB_P5} lane launch {ms:.3f} ms, "
+              f"{lane_ms[name]:.3f} ms a lane, solo launch {solo_ms:.3f} ms "
+              f"(median of 3 after a warm-up; {card})")
+    del img_b
+
+    # (c) execute_batch at P5, rb = LANE_RB_P5, through each CUDA variant
+    batch = {name: 0 for name in KERNELS}
+    for variant, nb in BATCH_VARIANTS:
+        plan = plan_reconstruction(geom, variant, nb=nb,
+                                   proj_batch=STREAM_CHUNK, out="device")
+        ex = PlanExecutor(geom, plan)
+        solo = [ex.reconstruct(p) for p in reqs]
+        reset_launches()
+        plain.calls = 0
+        vols = ex.execute_batch(reqs)
+        torch.cuda.synchronize()
+        got = lane_launches()
+        n_all = sum(launches().values())
+        kernel = max(got, key=got.get)
+        want = len(plan.steps) * len(plan.chunks)
+        require(got[kernel] == want and n_all == want and plain.calls == 0,
+                f"execute_batch {variant} nb={nb}: launches {launches()}, "
+                f"want {want} lane launches of one kernel (steps x chunks) "
+                f"and no plain version")
+        for name in KERNELS:
+            batch[name] += got[name]
+        for r in range(LANE_RB_P5):
+            require(tuple(vols[r].shape) == geom.volume_shape_zyx
+                    and torch.equal(vols[r], solo[r]),
+                    f"execute_batch {variant} nb={nb}: lane {r} is not "
+                    f"bitwise equal to reconstruct on that request")
+        line = (f"[batch] P5 execute_batch {variant} nb={nb}, "
+                f"rb={LANE_RB_P5}: every lane equals its solo reconstruct "
+                f"bit for bit; {want} lane launches of {kernel} (1 step x "
+                f"{len(plan.chunks)} chunks) for {LANE_RB_P5} requests")
+        if nb == 8:
+            ms_b = timed(lambda: ex.execute_batch(reqs))
+            ms_s = timed(lambda: [ex.reconstruct(p) for p in reqs])
+            line += (f"; batch {ms_b:.3f} ms vs {LANE_RB_P5} sequential "
+                     f"reconstruct {ms_s:.3f} ms ({ms_s / ms_b:.3f}x; median "
+                     f"of 3 after a warm-up; {card})")
+        print(line)
+        del vols, solo
+    require(all(batch[name] > 0 for name in KERNELS),
+            f"execute_batch launched no lane form of some kernel: {batch}")
+
+    # (d) the tiled walks at P5, rb = 2: host async (the service's bucket)
+    # and device sync (the slab steps without the host flush)
+    for out, pipeline in (("host", "async"), ("device", "sync")):
+        plan = plan_reconstruction(geom, "subline_pl",
+                                   tile_shape=(256, 256, 96),
+                                   proj_batch=STREAM_CHUNK, out=out)
+        ex = PlanExecutor(geom, plan, pipeline=pipeline)
+        solo = [ex.reconstruct(p) for p in reqs[:2]]
+        reset_launches()
+        plain.calls = 0
+        vols = ex.execute_batch(reqs[:2])
+        torch.cuda.synchronize()
+        got = lane_launches()
+        want = len(plan.steps) * len(plan.chunks)
+        label = f"tiled (256, 256, 96) out={out} {pipeline}"
+        require(got["backproject_subline_fused"] == want
+                and sum(launches().values()) == want and plain.calls == 0,
+                f"{label} execute_batch: launches {launches()}, want {want}")
+        for name in KERNELS:
+            batch[name] += got[name]
+        for r in range(2):
+            same = (np.array_equal(vols[r], solo[r]) if out == "host"
+                    else torch.equal(vols[r], solo[r]))
+            require(same, f"{label} execute_batch lane {r} is not bitwise "
+                    f"equal to solo")
+        del vols, solo
+        ms_b = timed(lambda: ex.execute_batch(reqs[:2]))
+        ms_s = timed(lambda: [ex.reconstruct(p) for p in reqs[:2]])
+        print(f"[batch] P5 {label} execute_batch rb=2: both lanes equal "
+              f"solo bit for bit; {want} lane launches = {len(plan.steps)} "
+              f"steps x {len(plan.chunks)} chunks; batch {ms_b:.3f} ms vs 2 "
+              f"sequential {ms_s:.3f} ms ({ms_s / ms_b:.3f}x; median of 3 "
+              f"after a warm-up; {card})")
+    for budget in BATCH_BUDGETS:
+        rb8 = plan_reconstruction(geom, "subline_pl", memory_budget=budget,
+                                  request_batch=8)
+        print(f"[batch] P5 memory_budget={budget / 2**30:g} GiB at "
+              f"request_batch=8: the tile picker plans {rb8.tile_shape} "
+              f"({len(rb8.steps)} steps), working set "
+              f"{rb8.working_set_bytes / 2**30:.3f} GiB for 8 lanes")
+        require(rb8.working_set_bytes <= budget,
+                "the rb=8 plan overruns its memory budget")
+    del reqs
+    print(f"[batch] phase {time.perf_counter() - t_phase:.1f} s")
+    return batch, lane_ms
+
+
+def _pace(sessions, projs, t_start) -> None:
+    """Push the scan's views to each session in SCAN_GROUP groups at the
+    paced scanner's rate (all sessions in lockstep)."""
+    n = projs[0].shape[0]
+    for v0 in range(0, n, SCAN_GROUP):
+        wait = t_start + SCAN_S * v0 / n - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        for sess, p in zip(sessions, projs):
+            sess.push(p[v0:v0 + SCAN_GROUP], start=v0)
+
+
+def phase_stream(seed: int, plain) -> dict:
+    """Online ingest at P5: a producer thread pushes the 512 views at a
+    paced scanner rate (SCAN_S seconds a rotation) into one session, then
+    into two sessions of one service folded as one lane launch per step.
+    Returns the lane launches of the two runs by kernel row."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from repro_torch.configs.ct_paper import get_problem
+    from repro_torch.runtime.executor import PlanExecutor
+    from repro_torch.runtime.planner import plan_reconstruction
+    from repro_torch.runtime.service import ReconService
+    t_phase = time.perf_counter()
+    card = card_line()
+    geom = get_problem("P5").geometry()
+    rng = np.random.default_rng(seed + 11)
+    projs = [rng.random(geom.proj_shape_hw, dtype=np.float32)
+             for _ in range(2)]
+    plan = plan_reconstruction(geom, "subline_pl", proj_batch=STREAM_CHUNK,
+                               ingest="stream", out="device")
+    ex = PlanExecutor(geom, plan)
+    refs = [ex.reconstruct(p) for p in projs]
+    total = {name: 0 for name in KERNELS}
+
+    def run(sessions, data):
+        reset_launches()
+        plain.calls = 0
+        # the scanner: a thread of its own, whose error result() raises
+        with ThreadPoolExecutor(1, thread_name_prefix="scanner") as pool:
+            pool.submit(_pace, sessions, data, time.perf_counter()).result()
+        vols = [s.close() for s in sessions]
+        torch.cuda.synchronize()
+        require(plain.calls == 0, "a stream fold ran a plain version")
+        return vols
+
+    # one session on the executor: its own folder thread
+    se = ex.open_stream()
+    (vol,) = run([se], projs[:1])
+    n = launches()
+    require(n["backproject_subline_fused"] == len(plan.chunks)
+            and sum(n.values()) == len(plan.chunks),
+            f"one stream: launches {n}, want {len(plan.chunks)} of K2")
+    require(torch.equal(vol, refs[0]), "the P5 stream is not bitwise equal "
+            "to the chunk-major reconstruct")
+    rep = se.report
+    print(f"[stream] P5 subline_pl, {len(plan.chunks)} chunks of "
+          f"{STREAM_CHUNK} views pushed over {rep.acquire_s * 1e3:.3f} ms "
+          f"(paced, {SCAN_GROUP} views a push): close() equals the "
+          f"chunk-major reconstruct bit for bit; compute "
+          f"{rep.compute_s * 1e3:.3f} ms, tail (last view to volume) "
+          f"{rep.tail_s * 1e3:.3f} ms, hidden_fraction "
+          f"{rep.hidden_fraction:.3f} ({card})")
+
+    # two sessions of one service, folded as one lane launch per step
+    with ReconService(max_inflight=1, max_batch=2, max_wait_ms=200.0) as svc:
+        sessions = [svc.open_stream(geom, variant="subline_pl",
+                                    proj_batch=STREAM_CHUNK, out="device")
+                    for _ in range(2)]
+        vols = run(sessions, projs)
+        got = lane_launches()
+        st = next(b for b in svc.stats().buckets if b.streams)
+    for name in KERNELS:
+        total[name] += got[name]
+    for r in range(2):
+        require(torch.equal(vols[r], refs[r]), f"session {r} of two is not "
+                f"bitwise equal to its solo stream")
+    require(st.stream_dispatches == len(plan.chunks)
+            and st.stream_mean_lanes == 2.0
+            and got["backproject_subline_fused"] == len(plan.chunks),
+            f"two sessions: {st.stream_dispatches} stream dispatches, "
+            f"{st.stream_mean_lanes} lanes each, lane launches {got}; want "
+            f"{len(plan.chunks)} dispatches of 2 lanes, one lane launch "
+            f"each")
+    print(f"[stream] two concurrent P5 sessions: {st.stream_dispatches} "
+          f"service.stream_dispatch of {st.stream_mean_lanes} lanes, "
+          f"{got['backproject_subline_fused']} lane launches of K2; each "
+          f"session equals its solo stream bit for bit; mean tail "
+          f"{st.stream_tail_ms} ms, mean hidden_fraction "
+          f"{st.stream_hidden_fraction} ({card})")
+    print(f"[stream] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+SERVICE_BUCKETS = (("untiled device", dict(variant="subline_pl")),
+                   ("(256, 256, 96) host async",
+                    dict(variant="subline_pl", tiling=(256, 256, 96),
+                         proj_batch=STREAM_CHUNK)))
+
+
+def phase_service(seed: int, plain) -> dict:
+    """``ReconService(max_inflight=2, max_batch=4)`` at P5: two warmed
+    buckets, a burst of 8 requests across them, each result against its
+    solo reconstruct, no program built after warm-up; and
+    ``repro_torch.reconstruct(..., service=svc)``. Returns the burst's
+    lane launches by kernel row."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import ReconOptions
+    from repro_torch.configs.ct_paper import get_problem
+    from repro_torch.runtime import telemetry
+    from repro_torch.runtime.service import ReconService
+    t_phase = time.perf_counter()
+    card = card_line()
+    geom = get_problem("P5").geometry()
+    rng = np.random.default_rng(seed + 13)
+    reqs = [torch.from_numpy(rng.random(geom.proj_shape_hw,
+                                        dtype=np.float32)).cuda()
+            for _ in range(4)]
+    total = {name: 0 for name in KERNELS}
+    with ReconService(max_inflight=2, max_batch=4) as svc:
+        t0 = time.perf_counter()
+        stats = svc.warmup([geom], **SERVICE_BUCKETS[0][1])
+        stats = svc.warmup([geom], **SERVICE_BUCKETS[1][1])
+        print(f"[service] warm-up of {len(stats.buckets)} P5 buckets: "
+              f"{stats.cache['misses']} programs built in "
+              f"{time.perf_counter() - t0:.3f} s")
+        solo, buckets = {}, {}
+        for label, opts in SERVICE_BUCKETS:
+            plan = svc._plan(geom, opts)[0]
+            buckets[label] = svc._buckets[(geom, plan.bucket_key)]
+            solo[label] = [buckets[label].executor.reconstruct(p)
+                           for p in reqs]
+        torch.cuda.synchronize()
+        misses = svc.cache.stats()["misses"]
+        reset_launches()
+        plain.calls = 0
+        with telemetry.tracing():
+            t0 = time.perf_counter()
+            futs = [(label, r, svc.submit(reqs[r], geom, **opts))
+                    for r in range(4) for label, opts in SERVICE_BUCKETS]
+            outs = [(label, r, f.result()) for label, r, f in futs]
+            wall = time.perf_counter() - t0
+            compiles = sum(e["name"] == "compile"
+                           for e in telemetry.events())
+        got = lane_launches()
+        require(compiles == 0 and svc.cache.stats()["misses"] == misses,
+                f"{compiles} programs were built after warm-up")
+        require(plain.calls == 0, "a served request ran a plain version")
+        for label, r, vol in outs:
+            want = solo[label][r]
+            same = (np.array_equal(vol, want) if isinstance(want, np.ndarray)
+                    else torch.equal(vol, want))
+            require(same, f"served request {r} of {label} is not bitwise "
+                    f"equal to its solo reconstruct")
+        st = svc.stats()
+        print(f"[service] burst of 8 P5 requests over 2 buckets in "
+              f"{wall * 1e3:.3f} ms (host clock): each equals its solo "
+              f"reconstruct bit for bit, 0 programs built after warm-up; "
+              f"lane launches {got}; {card}")
+        for label, bucket in buckets.items():
+            b = bucket.snapshot()
+            print(f"[service]   bucket {label} ({b.variant}, out="
+                  f"{bucket.plan.out}): {b.completed} requests in "
+                  f"{b.dispatches} batches, occupancy {b.mean_occupancy}, "
+                  f"p50 {b.p50_ms} ms, p99 {b.p99_ms} ms, batch p50 "
+                  f"{b.batch_p50_ms} ms, {b.amortized_us_per_request} us "
+                  f"a request (host clock; {card})")
+        require(st.dispatches < 8, f"the burst formed no batch: "
+                f"{st.dispatches} dispatches for 8 requests")
+        for name in KERNELS:
+            total[name] += got[name]
+        hits = st.bucket_hits
+        via = repro_torch.reconstruct(reqs[0], geom, options=ReconOptions(
+            service=svc, **SERVICE_BUCKETS[0][1]))
+        require(svc.stats().bucket_hits == hits + 1
+                and torch.equal(via, solo[SERVICE_BUCKETS[0][0]][0]),
+                "reconstruct(service=svc) was not routed through the bucket")
+        print("[service] repro_torch.reconstruct(..., service=svc) routed "
+              "through the untiled bucket, equal to its solo reconstruct")
+    print(f"[service] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2221,7 +2717,19 @@ def main(argv=None) -> int:
     phase_forward()
     tune = phase_tune(args.seed)
     for name, row in rows.items():
-        row["launches_tune"] = tune[name]
+        # the batch axis's candidates launch the lane forms
+        row["launches_tune"] = tune[name] + tune.get(f"{name}_lanes", 0)
+    # request batching, streaming and serving: the lane launches of their
+    # main-path runs join each row as launches_batch
+    batch, lane_ms = phase_batch(args.seed, errs, plain)
+    stream = phase_stream(args.seed, plain)
+    service = phase_service(args.seed, plain)
+    for name, row in rows.items():
+        row["launches_batch"] = (batch.get(name, 0) + stream.get(name, 0)
+                                 + service.get(name, 0))
+        row["lane_ms"] = lane_ms.get(name)
+        if name in errs:
+            row["max_abs_err"] = max(row["max_abs_err"], errs[name])
     # last: after P10's host walks the profiler recorded no device time at
     # all, so every profile runs before them
     plans.report()

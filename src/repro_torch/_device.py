@@ -6,6 +6,8 @@ card, the caller has to ask for ``device="cpu"`` itself.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -32,3 +34,12 @@ def check_on_device(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise ValueError(
             f"{name} lies on {t.device}, the call runs on {device}; move "
             f"it there first")
+
+
+def device_scope(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device, else a no-op: what
+    a worker thread that launches kernels enters first, so that its
+    launches, allocations and current stream are the executor's card's."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -136,6 +136,8 @@ def reconstruct(projections, geom: CTGeometry, method: str = "fdk",
     tensor on that device or a numpy array. ``options.tuning`` (and
     ``variant="auto"``) reach every method: the plan resolves by lookup
     of the autotuner's persisted winner for this device.
+    ``options.service`` (a ``runtime.service.ReconService``) routes every
+    method through the service's buckets, on the service's device.
     """
     o = _coerce_options(options, overrides, f"reconstruct(method={method!r})")
     if method == "fdk":
@@ -156,9 +158,20 @@ def reconstruct(projections, geom: CTGeometry, method: str = "fdk",
             "iterative methods run single-device (the solver loop owns "
             "the volume); devices= applies to method='fdk' only")
     if o.service is not None:
-        raise NotImplementedError(
-            "service= is not ported to repro_torch yet (ROADMAP.md queue 1 "
-            "item 1)")
+        # solver requests ride the service's solver buckets
+        if device is not None:
+            raise ValueError(
+                "device= is owned by the service's bucket executors "
+                "(ReconService(device=...)); do not pass both service= "
+                "and device=")
+        return o.service.reconstruct(
+            projections, geom, variant=o.variant, nb=o.nb,
+            interpret=o.interpret, tiling=o.tiling,
+            memory_budget=o.memory_budget, proj_batch=o.proj_batch,
+            out=o.out, schedule=o.schedule, precision=o.precision,
+            solver=method, n_iters=o.n_iters, relax=o.relax,
+            tv_weight=o.tv_weight, tv_inner=o.tv_inner, x0=o.x0,
+            oversample=o.oversample, **o.kernel_options_dict())
     from repro_torch.runtime.solvers import solve
     vol, _report = solve(
         projections, geom, method, n_iters=o.n_iters, relax=o.relax,

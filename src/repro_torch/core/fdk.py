@@ -91,17 +91,32 @@ def fdk_reconstruct(projections, geom: CTGeometry,
     heuristic plan, and planning never measures: ``autotune`` populates
     the cache). An explicit ``pipeline`` overrides the cached one.
 
-    ``service`` and ``devices`` raise ``NotImplementedError``: they wait
-    in ROADMAP.md.
+    ``service`` (a :class:`~repro_torch.runtime.service.ReconService`)
+    routes the call through the service's shape buckets and its FIFO
+    queue: the bucket's executor and programs are reused, and the result
+    is the service's for the same options. The service owns the flush
+    discipline and the device, so ``pipeline=`` and ``device=`` may not
+    be passed with it. ``devices`` (the JAX package's fleet) raises
+    ``NotImplementedError``: it waits in ROADMAP.md.
     """
     from repro_torch.runtime.executor import PlanExecutor
 
-    for name, value, item in (("service", service, "1"),
-                              ("devices", devices, "2")):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported to repro_torch yet (ROADMAP.md "
-                f"queue 1 item {item})")
+    if devices is not None:
+        raise NotImplementedError(
+            "devices= is not ported to repro_torch yet (ROADMAP.md queue 1 "
+            "item 1)")
+    if service is not None:
+        for name, value in (("pipeline", pipeline), ("device", device)):
+            if value is not None:
+                raise ValueError(
+                    f"{name}= is owned by the service's bucket executors "
+                    f"(ReconService({name}=...)); do not pass both "
+                    f"service= and {name}=")
+        return service.reconstruct(
+            projections, geom, variant=variant, nb=nb, interpret=interpret,
+            tiling=tiling, memory_budget=memory_budget,
+            proj_batch=proj_batch, out=out, schedule=schedule,
+            precision=precision, tuning=tuning, **kernel_options)
     if variant == "auto" or tuning is not None:
         # lookup-only tuned resolution: the config also carries the
         # executor-level pipeline knobs the plan cannot

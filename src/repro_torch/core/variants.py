@@ -11,7 +11,14 @@ Every kernel callable has the uniform signature
 
     fn(img_t, mat, vol_shape_xyz, **opts) -> vol_t (nx, ny, nz)
 
-operating on transposed layouts, on the device its tensors lie on. The
+operating on transposed layouts, on the device its tensors lie on, and
+a lane form (:attr:`KernelSpec.lanes`)
+
+    lanes(img_b, mat, vol_shape_xyz, **opts) -> vol_b (rb, nx, ny, nz)
+
+of rb stacked inputs ``img_b`` (rb, np, nw, nh) against one shared
+``mat``, each lane equal bit for bit to ``fn`` on it: one lane launch of
+the kernel for the CUDA variants, ``fn`` once per lane otherwise. The
 RTK baseline is exposed through the same signature by transposing at the
 edges. The variants (paper Table 2 naming; ``_mp`` = plain PyTorch,
 ``_pl`` = the hand-written CUDA kernel):
@@ -37,6 +44,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, FrozenSet, Mapping, Optional, Tuple
+
+import torch
 
 from . import backproject as bp
 from . import baseline as bl
@@ -101,6 +110,38 @@ def _banded_cuda(img_t, mat, vol_shape_xyz, nb: int = 8,
                                   proj_loop=proj_loop, device=img_t.device)
 
 
+def _subline_cuda_lanes(img_b, mat, vol_shape_xyz, nb: int = 8,
+                        interpret: bool = True, block=(4, 8),
+                        proj_loop: bool = False, **_):
+    from repro_torch.kernels import ops
+    return ops.backproject_subline_lanes(img_b, mat, vol_shape_xyz, nb=nb,
+                                         block=block, interpret=interpret,
+                                         proj_loop=proj_loop,
+                                         device=img_b.device)
+
+
+def _onehot_cuda_lanes(img_b, mat, vol_shape_xyz, nb: int = 8,
+                       interpret: bool = True, block=(4, 8),
+                       k_chunk: int = 128, proj_loop: bool = False, **_):
+    from repro_torch.kernels import ops
+    return ops.backproject_onehot_lanes(img_b, mat, vol_shape_xyz, nb=nb,
+                                        block=block, k_chunk=k_chunk,
+                                        interpret=interpret,
+                                        proj_loop=proj_loop,
+                                        device=img_b.device)
+
+
+def _banded_cuda_lanes(img_b, mat, vol_shape_xyz, nb: int = 8,
+                       interpret: bool = True, block=(4, 8), bw: int = 32,
+                       proj_loop: bool = False, **_):
+    from repro_torch.kernels import ops
+    return ops.backproject_banded_lanes(img_b, mat, vol_shape_xyz, nb=nb,
+                                        block=block, bw=bw,
+                                        interpret=interpret,
+                                        proj_loop=proj_loop,
+                                        device=img_b.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
     """Capability record for one back-projection kernel.
@@ -130,6 +171,8 @@ class KernelSpec:
         ``((option, (candidate values, ...)), ...)``. Every key must be
         in ``options``; heuristic defaults stay with the planner, this
         only widens the measured search.
+    lanes_fn : the kernel's rb-lane form (one launch for all lanes), or
+        None: :attr:`lanes` then runs ``fn`` once per lane.
     """
 
     name: str
@@ -140,6 +183,21 @@ class KernelSpec:
     backend: str = "torch"
     proj_loop: bool = False
     tuning_space: Tuple[Tuple[str, Tuple], ...] = ()
+    lanes_fn: Optional[Callable] = None
+
+    @property
+    def lanes(self) -> Callable:
+        """``lanes(img_b, mat, vol_shape_xyz, **opts) -> (rb, nx, ny,
+        nz)``: ``lanes_fn``, or ``fn`` once per lane (exact by
+        construction)."""
+        if self.lanes_fn is not None:
+            return self.lanes_fn
+        fn = self.fn
+
+        def per_lane(img_b, mat, vol_shape_xyz, **opts):
+            return torch.stack([fn(img_b[r], mat, vol_shape_xyz, **opts)
+                                for r in range(img_b.shape[0])])
+        return per_lane
 
     @property
     def uses_symmetry(self) -> bool:
@@ -179,13 +237,15 @@ REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
                 "localmem", "prefetch"),
                options=_PL_OPTS,
                slab_safe_fallback="subline_batch_mp", backend="cuda",
-               proj_loop=True, tuning_space=_PL_TUNING),
+               proj_loop=True, tuning_space=_PL_TUNING,
+               lanes_fn=_subline_cuda_lanes),
     KernelSpec("onehot_pl", _onehot_cuda,
                ("transpose", "share", "symmetry", "subline", "batch",
                 "localmem", "prefetch", "mxu-interp"),
                options=_PL_OPTS | {"k_chunk"},
                slab_safe_fallback="subline_batch_mp", backend="cuda",
-               proj_loop=True, tuning_space=_PL_TUNING),
+               proj_loop=True, tuning_space=_PL_TUNING,
+               lanes_fn=_onehot_cuda_lanes),
     # the band schedule is recomputed from the matrices on every call,
     # as in the reference
     KernelSpec("banded_pl", _banded_cuda,
@@ -193,7 +253,8 @@ REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
                 "localmem", "prefetch", "banded-prefetch"),
                options=_PL_OPTS | {"bw"},
                slab_safe_fallback="subline_batch_mp", backend="cuda",
-               proj_loop=True, tuning_space=_PL_TUNING),
+               proj_loop=True, tuning_space=_PL_TUNING,
+               lanes_fn=_banded_cuda_lanes),
 )}
 
 #: variants of the JAX package that this package does not carry yet
@@ -224,6 +285,10 @@ def _validate_registry() -> None:
             raise ValueError(
                 f"{spec.name!r} advertises proj_loop but does not accept "
                 f"the 'proj_loop' call option")
+        if spec.backend == "cuda" and spec.lanes_fn is None:
+            raise ValueError(
+                f"CUDA variant {spec.name!r} needs its kernel's lane form "
+                f"(lanes_fn): a loop of solo launches is not a batch")
         bad = [k for k, _ in spec.tuning_space if k not in spec.options]
         if bad:
             raise ValueError(

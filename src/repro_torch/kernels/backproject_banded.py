@@ -34,8 +34,16 @@ cut the projection stream through VMEM; here each tile's window is in
 shared memory already, so the band decides which lines count and adds
 one band load per line and view.
 
-On a CPU tensor the kernel wrappers run :func:`backproject_banded_plain`;
-on a CUDA tensor they launch the kernel or raise.
+The lane driver :func:`backproject_banded_lanes` back-projects rb stacked
+inputs ``img_b (rb, np, nw, nh)`` against one ``mat``: the band search
+reads only the matrices, so it runs once for all lanes
+(:func:`band_search`), each lane is laid out in bands, and one launch
+covers every lane (the grid's z is the lane), each equal bit for bit to
+the solo launch on it.
+
+On a CPU tensor the kernel wrappers run :func:`backproject_banded_plain`
+(the lane wrappers once per lane); on a CUDA tensor they launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -50,7 +58,9 @@ from . import backproject_subline as ks
 #: Launches of each kernel wrapper in this process (one per launch, counted
 #: only where the wrapper launches the CUDA kernel).
 LAUNCHES: Dict[str, int] = {"backproject_banded_kernel": 0,
-                            "backproject_banded_fused": 0}
+                            "backproject_banded_fused": 0,
+                            "backproject_banded_kernel_lanes": 0,
+                            "backproject_banded_fused_lanes": 0}
 
 
 _LIB = None
@@ -65,9 +75,10 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = ks._lib()    # the same library: backproject_subline.cu
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bp_tile_launch_banded.argtypes = [vp] * 4 + [ci] * 13 + [vp]
-        lib.bp_tile_launch_banded.restype = ci
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bp_tile_launch_banded_lanes.argtypes = ([vp] * 4 + [ci, cl, cl]
+                                                    + [ci] * 13 + [vp])
+        lib.bp_tile_launch_banded_lanes.restype = ci
         _LIB = lib
     return _LIB
 
@@ -187,24 +198,45 @@ def _check_banded(img_b, mat, band, vol_shape_xyz, block, bw, nw, group):
     return shape
 
 
-def _launch(img_b, mat, band, shape, block, bw, nw, group):
-    """One launch of the tiled kernel's banded instance under K1's launch
-    plan; raises if the launch fails."""
+def _check_banded_lanes(img_bb, mat, band, vol_shape_xyz, block, bw, nw,
+                        group):
+    """Validate an rb-lane banded call (``img_bb`` (rb, np, n_bands, 2*bw,
+    nh), each lane contiguous); return the volume shape."""
+    if not isinstance(img_bb, torch.Tensor) or img_bb.dim() != 5 \
+            or not 1 <= img_bb.shape[0] <= 65535:
+        raise ValueError(f"img_b must be an (rb, np, n_bands, 2*bw, nh) "
+                         f"tensor with 1 <= rb <= 65535, got "
+                         f"{getattr(img_bb, 'shape', type(img_bb))}")
+    return _check_banded(img_bb[0], mat, band, vol_shape_xyz, block, bw, nw,
+                         group)
+
+
+def _launch_lanes(img_bb, mat, band, shape, block, bw, nw, group):
+    """One launch of the tiled kernel's banded instance over the rb lanes
+    of ``img_bb`` under K1's launch plan; returns (rb,) + shape and raises
+    if the launch fails."""
     lib = _lib()
     ni, nj, nz = shape
-    n_proj, n_bands, _, nh = img_b.shape
+    rb, n_proj, n_bands, _, nh = img_bb.shape
     plan = ks.launch_plan(shape, nh, ks.plane_rows(mat, shape))
-    out = torch.empty(shape, dtype=torch.float32, device=img_b.device)
-    with torch.cuda.device(img_b.device):
-        stream = torch.cuda.current_stream(img_b.device).cuda_stream
-        err = lib.bp_tile_launch_banded(
-            img_b.data_ptr(), mat.data_ptr(), band.data_ptr(),
-            out.data_ptr(), n_proj, nw, nh, ni, nj, nz, plan.kpt,
-            plan.win_rows, bw, n_bands, int(block[0]), int(block[1]), group,
-            stream)
+    out = torch.empty((rb,) + tuple(shape), dtype=torch.float32,
+                      device=img_bb.device)
+    with torch.cuda.device(img_bb.device):
+        stream = torch.cuda.current_stream(img_bb.device).cuda_stream
+        err = lib.bp_tile_launch_banded_lanes(
+            img_bb.data_ptr(), mat.data_ptr(), band.data_ptr(),
+            out.data_ptr(), rb, ks.lane_stride(img_bb), ks.lane_stride(out),
+            n_proj, nw, nh, ni, nj, nz, plan.kpt, plan.win_rows, bw,
+            n_bands, int(block[0]), int(block[1]), group, stream)
     if err != 0:
         raise ks.launch_error("backproject_banded", lib, err)
     return out
+
+
+def _launch(img_b, mat, band, shape, block, bw, nw, group):
+    """One launch on one input (the one-lane :func:`_launch_lanes`)."""
+    return _launch_lanes(img_b[None], mat, band, shape, block, bw, nw,
+                         group)[0]
 
 
 def backproject_banded_kernel(img_b: torch.Tensor, mat: torch.Tensor,
@@ -240,12 +272,11 @@ def backproject_banded_fused(img_b: torch.Tensor, mat: torch.Tensor,
     return out
 
 
-def band_schedule(img_t: torch.Tensor, mat: torch.Tensor, vol_shape_xyz, *,
-                  block, bw: int, group: int):
+def band_search(mat: torch.Tensor, nw: int, vol_shape_xyz, *, block,
+                bw: int, group: int):
     """The reference driver's band search: double ``bw`` until every
-    tile's x-span + 2 fits it (or bw >= nw), then lay the projections out
-    in bands. Returns ``(img_b, band, bw)``."""
-    nw = img_t.shape[1]
+    tile's x-span + 2 fits it (or bw >= nw). It reads the matrices only.
+    Returns ``(band, bw)``."""
     ni, nj, _ = vol_shape_xyz
     BI, BJ = block
     while True:
@@ -253,10 +284,26 @@ def band_schedule(img_t: torch.Tensor, mat: torch.Tensor, vol_shape_xyz, *,
         band, span = tile_bands(mat, ni, nj, BI, BJ, bw, n_bands, nw,
                                 group=group)
         if span <= bw or bw >= nw:
-            break
+            return band, bw
         bw *= 2
+
+
+def band_schedule(img_t: torch.Tensor, mat: torch.Tensor, vol_shape_xyz, *,
+                  block, bw: int, group: int):
+    """:func:`band_search`, then the projections laid out in bands.
+    Returns ``(img_b, band, bw)``."""
+    band, bw = band_search(mat, img_t.shape[1], vol_shape_xyz, block=block,
+                           bw=bw, group=group)
     img_b, _ = band_layout(img_t, bw)
     return img_b, band, bw
+
+
+def band_layout_lanes(img_b: torch.Tensor, bw: int) -> torch.Tensor:
+    """:func:`band_layout` of every lane of ``img_b`` (rb, np, nw, nh):
+    (rb, np, n_bands, 2*bw, nh), each lane the layout of that lane."""
+    rb, n_proj, nw, nh = img_b.shape
+    lay, _ = band_layout(img_b.reshape(rb * n_proj, nw, nh), bw)
+    return lay.reshape((rb, n_proj) + tuple(lay.shape[1:]))
 
 
 def backproject_banded(img_t: torch.Tensor, mat: torch.Tensor,
@@ -280,3 +327,75 @@ def backproject_banded(img_t: torch.Tensor, mat: torch.Tensor,
                                         bw=bw, nw=nw, nb=nb)
     return backproject_banded_kernel(img_b, mat, band, shape, block=block,
                                      bw=bw, nw=nw)
+
+
+def backproject_banded_lanes_plain(img_bb: torch.Tensor, mat: torch.Tensor,
+                                   band: torch.Tensor, vol_shape_xyz, *,
+                                   block, bw: int, nw: int,
+                                   group: int = 1) -> torch.Tensor:
+    """The lane wrappers' plain version: :func:`backproject_banded_plain`
+    once per lane, stacked to (rb, ni, nj, nz)."""
+    return torch.stack([backproject_banded_plain(
+        img_bb[r], mat, band, vol_shape_xyz, block=block, bw=bw, nw=nw,
+        group=group) for r in range(img_bb.shape[0])])
+
+
+def backproject_banded_kernel_lanes(img_bb: torch.Tensor, mat: torch.Tensor,
+                                    band: torch.Tensor, vol_shape_xyz, *,
+                                    block=(4, 8), bw: int,
+                                    nw: int) -> torch.Tensor:
+    """K5 on rb lanes: ``img_bb`` (rb, np, n_bands, 2*bw, nh) from
+    :func:`band_layout_lanes`, one ``band`` and ``mat`` -> (rb, ni, nj,
+    nz), one launch; lane r equals :func:`backproject_banded_kernel` on
+    ``img_bb[r]`` bit for bit."""
+    shape = _check_banded_lanes(img_bb, mat, band, vol_shape_xyz, block, bw,
+                                nw, 1)
+    if img_bb.device.type == "cpu":
+        return backproject_banded_lanes_plain(img_bb, mat, band, shape,
+                                              block=block, bw=bw, nw=nw)
+    out = _launch_lanes(img_bb, mat, band, shape, block, bw, nw, 1)
+    LAUNCHES["backproject_banded_kernel_lanes"] += 1
+    return out
+
+
+def backproject_banded_fused_lanes(img_bb: torch.Tensor, mat: torch.Tensor,
+                                   band: torch.Tensor, vol_shape_xyz, *,
+                                   block=(4, 8), bw: int, nw: int,
+                                   nb: int = 8) -> torch.Tensor:
+    """K6 on rb lanes: K5's lane launch with one band per group of ``nb``
+    projections. Requires ``n_proj % nb == 0``."""
+    nb = int(nb)
+    shape = _check_banded_lanes(img_bb, mat, band, vol_shape_xyz, block, bw,
+                                nw, nb)
+    if img_bb.device.type == "cpu":
+        return backproject_banded_lanes_plain(img_bb, mat, band, shape,
+                                              block=block, bw=bw, nw=nw,
+                                              group=nb)
+    out = _launch_lanes(img_bb, mat, band, shape, block, bw, nw, nb)
+    LAUNCHES["backproject_banded_fused_lanes"] += 1
+    return out
+
+
+def backproject_banded_lanes(img_b: torch.Tensor, mat: torch.Tensor,
+                             vol_shape_xyz, *, block=(4, 8), bw: int = 32,
+                             nb: int = 0,
+                             proj_loop: bool = False) -> torch.Tensor:
+    """:func:`backproject_banded` on rb lanes: ``img_b`` (rb, np, nw, nh)
+    against one ``mat`` -> (rb, ni, nj, nz). The band search runs once
+    (it reads only the matrices), each lane is laid out in bands, and K5
+    (or K6) runs once over all lanes."""
+    if img_b.dim() != 4:
+        raise ValueError(f"img_b must be (rb, np, nw, nh), got "
+                         f"{tuple(img_b.shape)}")
+    fused = ks.fused_batch_ok(img_b.shape[1], nb, proj_loop)
+    shape = tuple(int(v) for v in vol_shape_xyz)
+    nw = img_b.shape[2]
+    band, bw = band_search(mat, nw, shape, block=tuple(block), bw=int(bw),
+                           group=nb if fused else 1)
+    img_bb = band_layout_lanes(img_b, bw)
+    if fused:
+        return backproject_banded_fused_lanes(img_bb, mat, band, shape,
+                                              block=block, bw=bw, nw=nw,
+                                              nb=nb)
+    return backproject_banded_kernel_lanes(img_bb, mat, band, shape,
+                                           block=block, bw=bw, nw=nw)

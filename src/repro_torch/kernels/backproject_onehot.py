@@ -32,8 +32,14 @@ FLOP at P5), each with two compares and two selects to build ``A``: about
 gather along lanes serialises); on Hopper a gather from shared memory is
 cheap, and the tensor cores cannot take it (each line has its own ``A``).
 
+The lane wrappers (:func:`backproject_onehot_kernel_lanes`,
+:func:`backproject_onehot_fused_lanes`) take rb stacked inputs against one
+``mat`` in one launch (``backproject_subline.launch_tile_lanes``), each
+lane equal bit for bit to the solo launch on it.
+
 On a CPU tensor the wrappers run :func:`backproject_onehot_plain`, the
-dense contraction; on a CUDA tensor they launch the kernel or raise.
+dense contraction (the lane wrappers once per lane); on a CUDA tensor
+they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ from . import backproject_subline as ks
 #: Launches of each kernel wrapper in this process (one per launch, counted
 #: only where the wrapper launches the CUDA kernel).
 LAUNCHES: Dict[str, int] = {"backproject_onehot_kernel": 0,
-                            "backproject_onehot_fused": 0}
+                            "backproject_onehot_fused": 0,
+                            "backproject_onehot_kernel_lanes": 0,
+                            "backproject_onehot_fused_lanes": 0}
 
 #: Bytes of one (lines, kc, nh) block of ``A`` in the plain version; the
 #: lines are chunked to stay under it.
@@ -162,4 +170,51 @@ def backproject_onehot_fused(img_t: torch.Tensor, mat: torch.Tensor,
         return backproject_onehot_plain(img_t, mat, shape, k_chunk=kc)
     out = ks.launch_tile(img_t, mat, shape, ks.TWO_HOT, "backproject_onehot")
     LAUNCHES["backproject_onehot_fused"] += 1
+    return out
+
+
+def backproject_onehot_lanes_plain(img_b: torch.Tensor, mat: torch.Tensor,
+                                   vol_shape_xyz, *,
+                                   k_chunk: int = 128) -> torch.Tensor:
+    """The lane wrappers' plain version: the dense contraction once per
+    lane, stacked to (rb, ni, nj, nz)."""
+    return torch.stack([backproject_onehot_plain(img_b[r], mat,
+                                                 vol_shape_xyz,
+                                                 k_chunk=k_chunk)
+                        for r in range(img_b.shape[0])])
+
+
+def backproject_onehot_kernel_lanes(img_b: torch.Tensor, mat: torch.Tensor,
+                                    vol_shape_xyz, *, block=(4, 8),
+                                    k_chunk: int = 128) -> torch.Tensor:
+    """K3 on rb lanes: ``img_b`` (rb, np, nw, nh), one ``mat`` -> (rb, nx,
+    ny, nz), one launch; lane r equals :func:`backproject_onehot_kernel`
+    on ``img_b[r]`` bit for bit."""
+    shape = ks._check_lanes(img_b, mat, vol_shape_xyz, block)
+    kc = clip_k_chunk(k_chunk, shape[2])
+    if img_b.device.type == "cpu":
+        return backproject_onehot_lanes_plain(img_b, mat, shape, k_chunk=kc)
+    out = ks.launch_tile_lanes(img_b, mat, shape, ks.TWO_HOT,
+                               "backproject_onehot")
+    LAUNCHES["backproject_onehot_kernel_lanes"] += 1
+    return out
+
+
+def backproject_onehot_fused_lanes(img_b: torch.Tensor, mat: torch.Tensor,
+                                   vol_shape_xyz, *, block=(4, 8),
+                                   k_chunk: int = 128,
+                                   nb: int = 8) -> torch.Tensor:
+    """K4 on rb lanes: K3's lane launch under K4's ``n_proj % nb == 0``
+    contract."""
+    shape = ks._check_lanes(img_b, mat, vol_shape_xyz, block)
+    kc = clip_k_chunk(k_chunk, shape[2])
+    nb = int(nb)
+    if nb < 1 or img_b.shape[1] % nb:
+        raise ValueError(f"the fused kernel needs nb >= 1 dividing "
+                         f"n_proj={img_b.shape[1]}, got nb={nb}")
+    if img_b.device.type == "cpu":
+        return backproject_onehot_lanes_plain(img_b, mat, shape, k_chunk=kc)
+    out = ks.launch_tile_lanes(img_b, mat, shape, ks.TWO_HOT,
+                               "backproject_onehot")
+    LAUNCHES["backproject_onehot_fused_lanes"] += 1
     return out

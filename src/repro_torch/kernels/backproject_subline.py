@@ -33,9 +33,17 @@ the volume it belongs to. A window wider than the kernel's 16
 columns (those problems, oblique geometries) or still taller than the slot
 is read from global memory instead, for that tile and view.
 
-On a CPU tensor the wrappers run :func:`backproject_subline_plain`, the
-same function in plain PyTorch; on a CUDA tensor they launch the kernel
-or raise. Nothing else selects the path.
+The lane wrappers (:func:`backproject_subline_kernel_lanes`,
+:func:`backproject_subline_fused_lanes`) back-project rb stacked inputs
+``img_b (rb, np, nw, nh)`` against one shared ``mat`` in ONE launch of the
+same kernel (:func:`launch_tile_lanes`: the grid's z is the lane), each
+lane equal bit for bit to the solo launch on that lane's input; this is
+what batches requests (``runtime.executor.ProgramCache.batch_program``).
+
+On a CPU tensor the wrappers run :func:`backproject_subline_plain` (the
+lane wrappers once per lane), the same function in plain PyTorch; on a
+CUDA tensor they launch the kernel or raise. Nothing else selects the
+path.
 """
 
 from __future__ import annotations
@@ -50,7 +58,9 @@ import torch
 #: Launches of each kernel wrapper in this process (one per launch, counted
 #: only where the wrapper launches the CUDA kernel).
 LAUNCHES: Dict[str, int] = {"backproject_subline_kernel": 0,
-                            "backproject_subline_fused": 0}
+                            "backproject_subline_fused": 0,
+                            "backproject_subline_kernel_lanes": 0,
+                            "backproject_subline_fused_lanes": 0}
 
 #: Dynamic shared memory a block may use on an H100 (227 KB).
 SMEM_PER_BLOCK = 232448
@@ -84,9 +94,10 @@ def _lib():
     if _LIB is None:
         from . import _build
         lib = _build.load("backproject_subline")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bp_tile_launch.argtypes = [vp, vp, vp] + [ci] * 9 + [vp]
-        lib.bp_tile_launch.restype = ci
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bp_tile_launch_lanes.argtypes = ([vp, vp, vp, ci, cl, cl]
+                                             + [ci] * 9 + [vp])
+        lib.bp_tile_launch_lanes.restype = ci
         lib.bp_tile_smem_bytes.argtypes = [ci, ci]
         lib.bp_tile_smem_bytes.restype = ctypes.c_size_t
         lib.bp_tile_occupancy.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 3
@@ -125,6 +136,24 @@ def _check(img_t, mat, vol_shape_xyz, block) -> tuple:
         raise ValueError(f"block must be (BI >= 1, BJ a multiple of 8), "
                          f"got {block}")
     return shape
+
+
+def _check_lanes(img_b, mat, vol_shape_xyz, block) -> tuple:
+    """Validate an rb-lane call (``img_b`` (rb, np, nw, nh), each lane
+    contiguous, lanes at any stride apart); return the volume shape."""
+    if not isinstance(img_b, torch.Tensor) or img_b.dim() != 4 \
+            or img_b.shape[0] < 1:
+        raise ValueError(f"img_b must be a (rb >= 1, np, nw, nh) tensor, "
+                         f"got {getattr(img_b, 'shape', type(img_b))}")
+    if img_b.shape[0] > 65535:
+        raise ValueError(f"rb={img_b.shape[0]} lanes exceed a grid's "
+                         f"65535")
+    return _check(img_b[0], mat, vol_shape_xyz, block)
+
+
+def lane_stride(t: torch.Tensor) -> int:
+    """Elements between the lanes of ``t`` (0 for one lane)."""
+    return int(t.stride(0)) if t.shape[0] > 1 else 0
 
 
 def _interp(sm: torch.Tensor, y: torch.Tensor, nh: int) -> torch.Tensor:
@@ -206,6 +235,15 @@ def backproject_subline_plain(img_t: torch.Tensor, mat: torch.Tensor,
     return vol.reshape(ni, nj, nz)
 
 
+def backproject_subline_lanes_plain(img_b: torch.Tensor, mat: torch.Tensor,
+                                    vol_shape_xyz) -> torch.Tensor:
+    """The lane wrappers' plain version: the plain version once per lane,
+    stacked to (rb, ni, nj, nz)."""
+    return torch.stack([backproject_subline_plain(img_b[r], mat,
+                                                  vol_shape_xyz)
+                        for r in range(img_b.shape[0])])
+
+
 def launch_error(name: str, lib, err: int) -> RuntimeError:
     return RuntimeError(
         f"{name} launch failed: CUDA error {err} "
@@ -267,22 +305,32 @@ def launch_plan(vol_shape_xyz, nh: int, rows=None) -> LaunchPlan:
     return LaunchPlan(kpt, k_chunk, grid, 2 * k_chunk * min(m, 4) + 16)
 
 
-def launch_tile(img_t, mat, shape, form: int, name: str) -> torch.Tensor:
-    """One launch of the tiled kernel under :func:`launch_plan`, stage 2
-    in ``form``; raises naming ``name`` if the launch fails."""
+def launch_tile_lanes(img_b, mat, shape, form: int,
+                      name: str) -> torch.Tensor:
+    """One launch of the tiled kernel over the rb lanes of ``img_b`` (rb,
+    np, nw, nh) under :func:`launch_plan`, stage 2 in ``form``; returns
+    (rb,) + shape and raises naming ``name`` if the launch fails."""
     lib = _lib()
     ni, nj, nz = shape
-    n_proj, nw, nh = img_t.shape
+    rb, n_proj, nw, nh = img_b.shape
     plan = launch_plan(shape, nh, plane_rows(mat, shape))
-    out = torch.empty(shape, dtype=torch.float32, device=img_t.device)
-    with torch.cuda.device(img_t.device):
-        stream = torch.cuda.current_stream(img_t.device).cuda_stream
-        err = lib.bp_tile_launch(
-            img_t.data_ptr(), mat.data_ptr(), out.data_ptr(), n_proj, nw, nh,
-            ni, nj, nz, plan.kpt, plan.win_rows, form, stream)
+    out = torch.empty((rb,) + tuple(shape), dtype=torch.float32,
+                      device=img_b.device)
+    with torch.cuda.device(img_b.device):
+        stream = torch.cuda.current_stream(img_b.device).cuda_stream
+        err = lib.bp_tile_launch_lanes(
+            img_b.data_ptr(), mat.data_ptr(), out.data_ptr(), rb,
+            lane_stride(img_b), lane_stride(out), n_proj, nw, nh, ni, nj,
+            nz, plan.kpt, plan.win_rows, form, stream)
     if err != 0:
         raise launch_error(name, lib, err)
     return out
+
+
+def launch_tile(img_t, mat, shape, form: int, name: str) -> torch.Tensor:
+    """One launch of the tiled kernel on one input (the one-lane launch
+    of :func:`launch_tile_lanes`)."""
+    return launch_tile_lanes(img_t[None], mat, shape, form, name)[0]
 
 
 def backproject_subline_kernel(img_t: torch.Tensor, mat: torch.Tensor,
@@ -321,4 +369,35 @@ def backproject_subline_fused(img_t: torch.Tensor, mat: torch.Tensor,
         return backproject_subline_plain(img_t, mat, shape)
     out = launch_tile(img_t, mat, shape, LINEAR, "backproject_subline")
     LAUNCHES["backproject_subline_fused"] += 1
+    return out
+
+
+def backproject_subline_kernel_lanes(img_b: torch.Tensor, mat: torch.Tensor,
+                                     vol_shape_xyz, *,
+                                     block=(4, 8)) -> torch.Tensor:
+    """K1 on rb lanes: ``img_b`` (rb, np, nw, nh), one ``mat`` (np, 3, 4)
+    -> (rb, nx, ny, nz), one launch; lane r equals
+    :func:`backproject_subline_kernel` on ``img_b[r]`` bit for bit."""
+    shape = _check_lanes(img_b, mat, vol_shape_xyz, block)
+    if img_b.device.type == "cpu":
+        return backproject_subline_lanes_plain(img_b, mat, shape)
+    out = launch_tile_lanes(img_b, mat, shape, LINEAR, "backproject_subline")
+    LAUNCHES["backproject_subline_kernel_lanes"] += 1
+    return out
+
+
+def backproject_subline_fused_lanes(img_b: torch.Tensor, mat: torch.Tensor,
+                                    vol_shape_xyz, *, block=(4, 8),
+                                    nb: int = 8) -> torch.Tensor:
+    """K2 on rb lanes: K1's lane launch under K2's ``n_proj % nb == 0``
+    contract."""
+    shape = _check_lanes(img_b, mat, vol_shape_xyz, block)
+    nb = int(nb)
+    if nb < 1 or img_b.shape[1] % nb:
+        raise ValueError(f"the fused kernel needs nb >= 1 dividing "
+                         f"n_proj={img_b.shape[1]}, got nb={nb}")
+    if img_b.device.type == "cpu":
+        return backproject_subline_lanes_plain(img_b, mat, shape)
+    out = launch_tile_lanes(img_b, mat, shape, LINEAR, "backproject_subline")
+    LAUNCHES["backproject_subline_fused_lanes"] += 1
     return out

@@ -24,6 +24,12 @@
 //                                       group, tile); K5/K6 only
 // Output:
 //   out   (ni, nj, nz)                  vol_t[i][j][k], written exactly once
+// An rb-lane launch (bp_tile_launch_lanes, bp_tile_launch_banded_lanes)
+// takes rb lanes of img and out at strides of their own, with one mat and
+// band: the grid's z is the lane, and a lane's blocks do what a launch of
+// that lane alone does, in the same order, so every lane is equal bit for
+// bit to its own launch. This is how rb same-geometry requests (or the
+// same view chunk of rb scan sessions) share one launch.
 //
 // ---- tile_kernel ------------------------------------------------------------
 // What bounds it on an H100. By the repo's cost model (8 FLOP per
@@ -237,9 +243,13 @@ __device__ __forceinline__ int seg_len(int& r0, int r1, int nh, bool vec) {
 }
 
 struct Args {
-  const float* img;   // (n_proj, view_cols, nh)
+  const float* img;   // (n_proj, view_cols, nh), per lane
   const float* mat;
-  float* out;
+  float* out;         // (ni, nj, nz), per lane
+  // the lanes (blockIdx.z) of an rb-lane launch: lane l reads img +
+  // l * img_lane and writes out + l * out_lane (elements); every lane
+  // reads the same mat and band
+  long long img_lane, out_lane;
   const int* band;    // kBanded: (n_proj / group, n_bti, n_btj)
   int n_proj, nw, nh, ni, nj, nz, win_rows, n_tj;
   int view_cols;      // nw, or n_bands * 2*bw for the band layout
@@ -249,6 +259,13 @@ struct Args {
   bp::FastDiv div_bw, div_bi, div_bj, div_group;
   bool vec;
 };
+
+// The base of this block's lane of a lane-strided tensor (64-bit offsets:
+// one lane of P10's volume alone is 2.2e9 elements).
+template <class T>
+__device__ __forceinline__ T* lane_base(T* p, long long stride) {
+  return p + (size_t)blockIdx.z * (size_t)stride;
+}
 
 // The column of img (within a view) that holds image column c and, beside
 // it, c + 1: c itself, or in the band layout band c / bw at c mod bw (c mod
@@ -385,14 +402,16 @@ __device__ __forceinline__ void issue_window(const Args& A, const Smem& S,
     if (!kBanded) {
       // column c at a step of nh from the window's first: the card runs K1
       // up to 1.5% slower with the banded form's address arithmetic here
-      const float* src = A.img + ((size_t)v * A.nw + clo) * A.nh;
+      const float* src =
+          lane_base(A.img, A.img_lane) + ((size_t)v * A.nw + clo) * A.nh;
       for (int c = warp; c < nc; c += kWarps)
         for (int r = lane * unit; r < n_rows; r += kWarp * unit)
           cp_async(dst + c * n_rows + r,
                    src + (size_t)c * A.nh + (r < nd ? d0 + r : m0 + (r - nd)),
                    A.vec);
     } else {
-      const float* view = A.img + (size_t)v * A.view_cols * A.nh;
+      const float* view =
+          lane_base(A.img, A.img_lane) + (size_t)v * A.view_cols * A.nh;
       for (int c = warp; c < nc; c += kWarps) {
         const float* src = view + (size_t)src_col<kBanded>(A, clo + c) * A.nh;
         for (int r = lane * unit; r < n_rows; r += kWarp * unit)
@@ -548,7 +567,8 @@ tile_kernel(Args A) {
     const int nm = d[kNm], path = d[kPath];
     const int n_rows = nd + nm;
     const int ps = (s % kParSlots) * kTileLines + warp * kTj;
-    const float* gimg = A.img + (size_t)s * A.view_cols * A.nh;
+    const float* gimg =
+        lane_base(A.img, A.img_lane) + (size_t)s * A.view_cols * A.nh;
     if (path != kPathGlobalRows) {
       // stage 1: each line's window rows of columns ixc, ixc + 1
       if (path == kPathWindow)
@@ -610,7 +630,8 @@ tile_kernel(Args A) {
   for (int l = 0; l < kTj; ++l) {
     const int lj = j0 + l;
     if (lj >= A.nj) break;
-    float* o = A.out + ((size_t)li * A.nj + lj) * A.nz;
+    float* o =
+        lane_base(A.out, A.out_lane) + ((size_t)li * A.nj + lj) * A.nz;
 #pragma unroll
     for (int r = 0; r < KPT; ++r) {
       const int k = k0 + lane + r * kWarp;
@@ -656,15 +677,22 @@ int with_instance(int kpt, int form, bool banded, Fn fn) {
   return (int)cudaErrorInvalidValue;
 }
 
-// One launch on `stream` with k chunks of 32*kpt planes and window slots
-// of win_rows rows; the grid and the shared memory follow from them.
-// Returns cudaGetLastError() after the launch (0 on success), or the error
-// of a block that asks more shared memory than the card has. Does not
-// synchronise and allocates nothing.
-int launch(Args a, int kpt, int form, bool banded, void* stream) {
+// One launch on `stream` of rb lanes with k chunks of 32*kpt planes and
+// window slots of win_rows rows; the grid (tiles, k chunks, lanes) and the
+// shared memory follow from them. A lane's blocks do what the blocks of a
+// launch of that lane alone do, in the same order, so each lane's volume
+// is that launch's bit for bit. Returns cudaGetLastError() after the
+// launch (0 on success), or the error of a block that asks more shared
+// memory than the card has. Does not synchronise and allocates nothing.
+int launch(Args a, int rb, int kpt, int form, bool banded, void* stream) {
   if (a.n_proj < 0 || a.nw < 2 || a.nh < 2 || a.ni < 1 || a.nj < 1 ||
       a.nz < 1 || (kpt != 1 && kpt != 2 && kpt != 4) || a.win_rows < 4 ||
       a.win_rows % 4 || (long long)a.view_cols * a.nh > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  // lanes: at most gridDim.z's 65535, each lane's tensors apart
+  if (rb < 1 || rb > 65535 ||
+      (rb > 1 && (a.img_lane < (long long)a.n_proj * a.view_cols * a.nh ||
+                  a.out_lane < (long long)a.ni * a.nj * a.nz)))
     return (int)cudaErrorInvalidValue;
   const int khp = a.nz - a.nz / 2;
   const long long n_chunks = (khp + kpt * kWarp - 1) / (kpt * kWarp);
@@ -672,9 +700,10 @@ int launch(Args a, int kpt, int form, bool banded, void* stream) {
   a.n_tj = (a.nj + kTj - 1) / kTj;
   if (n_chunks > 65535 || (long long)n_ti * a.n_tj > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  a.vec = a.nh % 4 == 0 && ((size_t)a.img & 15) == 0;
+  a.vec = a.nh % 4 == 0 && ((size_t)a.img & 15) == 0 && a.img_lane % 4 == 0;
   const int smem = (int)smem_bytes(a.nh, a.win_rows);
-  const dim3 grid((unsigned)(n_ti * a.n_tj), (unsigned)n_chunks);
+  const dim3 grid((unsigned)(n_ti * a.n_tj), (unsigned)n_chunks,
+                  (unsigned)rb);
   const cudaStream_t st = (cudaStream_t)stream;
   return with_instance(kpt, form, banded, [&](auto k, auto f, auto b) {
     constexpr int K = decltype(k)::value;
@@ -730,16 +759,21 @@ int bp_tile_occupancy(int kpt, int form, int banded, int nh, int win_rows,
   return 0;
 }
 
-// K1-K4: img_t (n_proj, nw, nh), k chunks of 32*kpt planes (kpt 1, 2 or
-// 4), window slots of win_rows rows (a multiple of 4) and stage 2 in
-// `form` (0 linear: K1/K2; 1 two-hot: K3/K4). See tiled::launch.
-int bp_tile_launch(const float* img_t, const float* mat, float* out,
-                   int n_proj, int nw, int nh, int ni, int nj, int nz,
-                   int kpt, int win_rows, int form, void* stream) {
+// K1-K4 on rb lanes: lane l of img_t (rb, n_proj, nw, nh) at l * img_lane
+// elements, of out (rb, ni, nj, nz) at l * out_lane, one shared mat; k
+// chunks of 32*kpt planes (kpt 1, 2 or 4), window slots of win_rows rows
+// (a multiple of 4) and stage 2 in `form` (0 linear: K1/K2; 1 two-hot:
+// K3/K4). 1 <= rb <= 65535. See tiled::launch.
+int bp_tile_launch_lanes(const float* img_t, const float* mat, float* out,
+                         int rb, long long img_lane, long long out_lane,
+                         int n_proj, int nw, int nh, int ni, int nj, int nz,
+                         int kpt, int win_rows, int form, void* stream) {
   tiled::Args a{};
   a.img = img_t;
   a.mat = mat;
   a.out = out;
+  a.img_lane = img_lane;
+  a.out_lane = out_lane;
   a.n_proj = n_proj;
   a.nw = nw;
   a.nh = nh;
@@ -748,19 +782,31 @@ int bp_tile_launch(const float* img_t, const float* mat, float* out,
   a.nz = nz;
   a.win_rows = win_rows;
   a.view_cols = nw;
-  return tiled::launch(a, kpt, form, false, stream);
+  return tiled::launch(a, rb, kpt, form, false, stream);
 }
 
-// K5/K6: the linear form reading img_b (n_proj, n_bands, 2*bw, nh), band
-// (n_proj/group, ni/bi, nj/bj) int32 with values in [0, n_bands); nw is
-// the TRUE detector width. The band tiles must divide the volume and bj be
-// a multiple of 8, so the 8 lines of a warp share one band tile; the
-// bands must hold every image column. Plan and return as bp_tile_launch.
-int bp_tile_launch_banded(const float* img_b, const float* mat,
-                          const int* band, float* out, int n_proj, int nw,
-                          int nh, int ni, int nj, int nz, int kpt,
-                          int win_rows, int bw, int n_bands, int bi, int bj,
-                          int group, void* stream) {
+// K1-K4 on one lane: img_t (n_proj, nw, nh) -> out (ni, nj, nz).
+int bp_tile_launch(const float* img_t, const float* mat, float* out,
+                   int n_proj, int nw, int nh, int ni, int nj, int nz,
+                   int kpt, int win_rows, int form, void* stream) {
+  return bp_tile_launch_lanes(img_t, mat, out, 1, 0, 0, n_proj, nw, nh, ni,
+                              nj, nz, kpt, win_rows, form, stream);
+}
+
+// K5/K6 on rb lanes: the linear form reading lane l of img_b (rb, n_proj,
+// n_bands, 2*bw, nh) at l * img_lane elements, writing out (rb, ni, nj,
+// nz) at l * out_lane, with one shared band (n_proj/group, ni/bi, nj/bj)
+// int32 with values in [0, n_bands); nw is the TRUE detector width. The
+// band tiles must divide the volume and bj be a multiple of 8, so the 8
+// lines of a warp share one band tile; the bands must hold every image
+// column. Plan and return as bp_tile_launch_lanes.
+int bp_tile_launch_banded_lanes(const float* img_b, const float* mat,
+                                const int* band, float* out, int rb,
+                                long long img_lane, long long out_lane,
+                                int n_proj, int nw, int nh, int ni, int nj,
+                                int nz, int kpt, int win_rows, int bw,
+                                int n_bands, int bi, int bj, int group,
+                                void* stream) {
   if (band == nullptr || bw < 1 || n_bands < 1 || nw < 2 ||
       (nw - 1) / bw >= n_bands || bi < 1 || bj < 8 || bj % 8 || ni < 1 ||
       nj < 1 || ni % bi || nj % bj || group < 1 || n_proj % group ||
@@ -771,6 +817,8 @@ int bp_tile_launch_banded(const float* img_b, const float* mat,
   a.mat = mat;
   a.out = out;
   a.band = band;
+  a.img_lane = img_lane;
+  a.out_lane = out_lane;
   a.n_proj = n_proj;
   a.nw = nw;
   a.nh = nh;
@@ -786,7 +834,18 @@ int bp_tile_launch_banded(const float* img_b, const float* mat,
   a.div_bi = bp::FastDiv(bi);
   a.div_bj = bp::FastDiv(bj);
   a.div_group = bp::FastDiv(group);
-  return tiled::launch(a, kpt, tiled::kLinear, true, stream);
+  return tiled::launch(a, rb, kpt, tiled::kLinear, true, stream);
+}
+
+// K5/K6 on one lane: img_b (n_proj, n_bands, 2*bw, nh) -> out (ni, nj, nz).
+int bp_tile_launch_banded(const float* img_b, const float* mat,
+                          const int* band, float* out, int n_proj, int nw,
+                          int nh, int ni, int nj, int nz, int kpt,
+                          int win_rows, int bw, int n_bands, int bi, int bj,
+                          int group, void* stream) {
+  return bp_tile_launch_banded_lanes(img_b, mat, band, out, 1, 0, 0, n_proj,
+                                     nw, nh, ni, nj, nz, kpt, win_rows, bw,
+                                     n_bands, bi, bj, group, stream);
 }
 
 }  // extern "C"

@@ -8,6 +8,11 @@ Only the tensors' device selects the path: a CPU tensor runs the plain
 PyTorch version of each kernel, a CUDA tensor launches the kernel or
 raises. The ``interpret`` option is accepted so the option sets match the
 JAX package's registry, and selects nothing.
+
+The ``*_lanes`` forms take rb stacked inputs ``img_b (rb, np, nw, nh)``
+against one shared ``mat`` and return (rb, ni, nj, nz) from one launch of
+the kernel's lane form; each lane equals the solo wrapper on it bit for
+bit. They pad ``i`` and ``j`` per lane only.
 """
 
 from __future__ import annotations
@@ -15,10 +20,16 @@ from __future__ import annotations
 from repro_torch._device import check_on_device, resolve_device
 
 from .backproject_banded import backproject_banded as _backproject_banded
+from .backproject_banded import (backproject_banded_lanes as
+                                 _backproject_banded_lanes)
 from .backproject_onehot import (backproject_onehot_fused,
-                                 backproject_onehot_kernel)
+                                 backproject_onehot_fused_lanes,
+                                 backproject_onehot_kernel,
+                                 backproject_onehot_kernel_lanes)
 from .backproject_subline import (backproject_subline_fused,
+                                  backproject_subline_fused_lanes,
                                   backproject_subline_kernel,
+                                  backproject_subline_kernel_lanes,
                                   fused_batch_ok)
 
 # KernelSpec contract (core.variants.REGISTRY): the call-time options each
@@ -44,14 +55,15 @@ def _run_padded(fn, img_t, mat, vol_shape_xyz, block, **kw):
     # Only i/j may be padded: extra voxel LINES are masked by the kernel's
     # bounds checks. nz must never be padded: the symmetry pairing
     # k <-> nz-1-k is defined by the true volume center (the kernel
-    # handles odd nz natively via an uneven half-split).
+    # handles odd nz natively via an uneven half-split). A lane wrapper's
+    # (rb, ni, nj, nz) output is cut per lane.
     ni, nj, nz = vol_shape_xyz
     BI, BJ = block
     nip = _pad_to(ni, BI)
     njp = _pad_to(nj, BJ)
     vol = fn(img_t, mat, (nip, njp, nz), block=block, **kw)
     if (nip, njp) != (ni, nj):
-        vol = vol[:ni, :nj]
+        vol = vol[..., :ni, :nj, :]
     return vol
 
 
@@ -108,3 +120,43 @@ def _on_device(img_t, mat, device) -> None:
     dev = resolve_device(device)
     check_on_device("img_t", img_t, dev)
     check_on_device("mat", mat, dev)
+
+
+def backproject_subline_lanes(img_b, mat, vol_shape_xyz, *, nb: int = 0,
+                              block=(4, 8), proj_loop: bool = False,
+                              interpret: bool = True, device=None):
+    """:func:`backproject_subline` on rb lanes (K1's or K2's lane launch):
+    ``img_b`` (rb, np, nw, nh) -> (rb, ni, nj, nz)."""
+    _on_device(img_b, mat, device)
+    if fused_batch_ok(img_b.shape[1], nb, proj_loop):
+        return _run_padded(backproject_subline_fused_lanes, img_b, mat,
+                                 tuple(vol_shape_xyz), block, nb=nb)
+    return _run_padded(backproject_subline_kernel_lanes, img_b, mat,
+                             tuple(vol_shape_xyz), block)
+
+
+def backproject_onehot_lanes(img_b, mat, vol_shape_xyz, *, nb: int = 0,
+                             block=(4, 8), k_chunk: int = 128,
+                             proj_loop: bool = False, interpret: bool = True,
+                             device=None):
+    """:func:`backproject_onehot` on rb lanes (K3's or K4's lane
+    launch)."""
+    _on_device(img_b, mat, device)
+    if fused_batch_ok(img_b.shape[1], nb, proj_loop):
+        return _run_padded(backproject_onehot_fused_lanes, img_b, mat,
+                                 tuple(vol_shape_xyz), block,
+                                 k_chunk=k_chunk, nb=nb)
+    return _run_padded(backproject_onehot_kernel_lanes, img_b, mat,
+                             tuple(vol_shape_xyz), block, k_chunk=k_chunk)
+
+
+def backproject_banded_lanes(img_b, mat, vol_shape_xyz, *, nb: int = 0,
+                             block=(4, 8), bw: int = 32,
+                             proj_loop: bool = False, interpret: bool = True,
+                             device=None):
+    """:func:`backproject_banded` on rb lanes: one band search, each lane
+    in bands, K5's or K6's lane launch."""
+    _on_device(img_b, mat, device)
+    return _run_padded(_backproject_banded_lanes, img_b, mat,
+                             tuple(vol_shape_xyz), block, bw=bw, nb=nb,
+                             proj_loop=proj_loop)

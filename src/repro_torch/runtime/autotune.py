@@ -65,8 +65,9 @@ Where the port departs from the JAX package, and why:
     while anything else it raises (a kernel that does not build or
     launch, a CUDA error) fails the search instead of handing the win
     to another variant;
-  * the request-batch axis is empty until request batching is ported
-    (ROADMAP.md queue 1 item 1, serving).
+  * the request-batch axis offers rb in (1, 2, 4, 8) on step-major plans
+    and is measured amortized (one ``execute_batch`` of rb copies, wall /
+    rb), as in the JAX package.
 
 Exactness contract
 ------------------
@@ -594,15 +595,27 @@ def _measure_config(geom, config: TunedConfig, projections,
     (the cache makes repeat candidates nearly free), then ``warmup``
     untimed calls absorb first-call effects (a CUDA kernel's first launch
     loads its module) and the median of ``iters`` timed calls is
-    returned. A config with ``max_batch > 1`` raises in the executor
-    until request batching is ported.
+    returned.
+
+    ``config.max_batch > 1`` measures the batched path: one
+    ``execute_batch`` of max_batch copies of the projections (one lane
+    launch per step and chunk), returning wall / max_batch, the amortized
+    time a request, comparable with the unbatched candidates.
     """
     from repro_torch.runtime.executor import PlanExecutor
     ex = PlanExecutor.from_config(geom, config, cache=program_cache,
                                   device=device)
     ex.warm()
-    return _median_wall(lambda: ex.reconstruct(projections), ex.device,
-                        iters, warmup)
+    rb = max(1, int(config.max_batch))
+    if rb == 1:
+        return _median_wall(lambda: ex.reconstruct(projections), ex.device,
+                            iters, warmup)
+    if not ex.supports_request_batching:
+        raise ValueError("config cannot batch (chunk-major plan)")
+    ex.warm_batch(rb)
+    reqs = [projections] * rb
+    return _median_wall(lambda: ex.execute_batch(reqs), ex.device, iters,
+                        warmup) / rb
 
 
 def _measure_solver(geom, config: TunedConfig, projections,
@@ -738,11 +751,15 @@ def _schedule_axis(cur: TunedConfig, memory_budget: Optional[int],
 
 
 def _batch_axis(cur: TunedConfig) -> List[TunedConfig]:
-    """Cross-request batch cap candidates: none while
-    ``PlanExecutor.execute_batch`` is unported (ROADMAP.md queue 1
-    item 1, serving). The JAX package offers rb in (1, 2, 4, 8) on
-    step-major plans; here they could only fail in the executor."""
-    return []
+    """Cross-request batch cap candidates (the service's rb sweet spot):
+    rb in (1, 2, 4, 8) on step-major plans, as in the JAX package. Each
+    lane is bit-identical to the request alone, so the axis is searched
+    in exact mode too; candidates are measured amortized
+    (:func:`_measure_config`)."""
+    if cur.schedule != "step":
+        return []
+    return [dataclasses.replace(cur, max_batch=rb)
+            for rb in (1, 2, 4, 8) if rb != cur.max_batch]
 
 
 def _precision_axis(cur: TunedConfig) -> List[TunedConfig]:

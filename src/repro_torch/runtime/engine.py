@@ -160,4 +160,4 @@ class TiledReconstructor:
     def backproject_distributed(self, img_t, mats, mesh, **_):
         raise NotImplementedError(
             "backproject_distributed is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1 item 2)")
+            "(ROADMAP.md queue 1 item 1)")

@@ -28,27 +28,42 @@
     (:class:`_AsyncFlushQueue`): a side stream copies each step's pieces
     into pinned host buffers while the next step runs.
 
+  * Request batching: :meth:`PlanExecutor.execute_batch` reconstructs
+    rb same-bucket requests with one launch per step and chunk. The
+    ``batch_*`` programs call each variant's lane form
+    (``core.variants.KernelSpec.lanes``: one rb-lane launch of the CUDA
+    kernel, whose lanes each equal the solo launch bit for bit), so every
+    request's volume is bit-identical to ``reconstruct`` on it alone.
+
+  * :class:`StreamingExecutor`: online ingest (``open_stream`` on an
+    ``ingest="stream"`` plan). Views are pushed as the scanner produces
+    them into host chunk buffers; each complete chunk goes to the device,
+    is filtered and folded into per-step accumulators in chunk order, so
+    ``close()`` is bit-identical to the chunk-major ``reconstruct``.
+
 Precision rides the plan: ``precision="bf16"`` wraps every program so
 that projection samples enter the kernel rounded to bfloat16 while the
 matrices, weights, accumulators and the output stay float32
 (:func:`_precision_adapter`). Solver plans run here too, driven by
 ``runtime.solvers.IterativeExecutor``. Telemetry spans (``compile``,
-``filter.chunk``, ``step.dispatch`` with its roofline args, and
-``flush`` on the flusher thread) ride every walk (``runtime.telemetry``).
-Request batching, streaming ingest and the multi-device fleet wait in
-ROADMAP.md and raise ``NotImplementedError`` here.
+``filter.chunk``, ``step.dispatch`` with its roofline args, ``flush`` on
+the flusher thread, ``stream.fold`` and ``stream.tail``) ride every walk
+(``runtime.telemetry``). The multi-device fleet waits in ROADMAP.md and
+raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
-from typing import Callable, Dict, Optional, Tuple
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch._device import check_on_device, resolve_device
+from repro_torch._device import check_on_device, device_scope, resolve_device
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import backproject as bp
 from repro_torch.core.filtering import fdk_filter_chunk
@@ -162,6 +177,29 @@ class ProgramCache:
 
         return self.get_or_build(key, build)
 
+    def batch_program(self, variant: str, call_shape: Tuple[int, int, int],
+                      nb: int, dtype: str, interpret: bool,
+                      options: Tuple = (), *, rb: int) -> Callable:
+        """rb-lane program: ``prog(img_b, mat) -> vol_b((rb,) +
+        call_shape)`` where ``img_b`` stacks rb filtered projection chunks
+        ``(rb, chunk, nw, nh)`` over ONE shared matrix chunk: one lane
+        launch of the variant's kernel (``KernelSpec.lanes``). The
+        streaming service folds the same view chunk of rb same-bucket
+        sessions with it; each lane is bit-identical to :meth:`program`
+        on that lane's input."""
+        key = ("batch_kernel", variant, tuple(call_shape), int(nb),
+               str(dtype), bool(interpret), tuple(options), int(rb))
+
+        def build():
+            spec = get_spec(variant)
+            opts = spec.resolve_options(
+                {**dict(options), "nb": int(nb), "interpret": bool(interpret)})
+            shape = tuple(call_shape)
+            lanes = _with_precision(spec.lanes, dtype)
+            return lambda img_b, mat: lanes(img_b, mat, shape, **opts)
+
+        return self.get_or_build(key, build)
+
     def scan_program(self, variant: str, call_shape: Tuple[int, int, int],
                      nb: int, dtype: str, interpret: bool,
                      options: Tuple = (), *, n_chunks: int,
@@ -193,6 +231,43 @@ class ProgramCache:
             return prog
 
         return self.get_or_build(key, build)
+
+    def batch_scan_program(self, variant: str,
+                           call_shape: Tuple[int, int, int],
+                           nb: int, dtype: str, interpret: bool,
+                           options: Tuple = (), *, n_chunks: int,
+                           chunk_size: int, rb: int) -> Callable:
+        """rb-lane step-major program: ``prog(img_b, mat_s) ->
+        vol_b((rb,) + call_shape)`` where ``img_b`` stacks rb requests'
+        chunk grids ``(rb, n_chunks, chunk_size, ...)`` and ``mat_s`` is
+        the SHARED chunk-stacked matrix grid (same-bucket requests share
+        the geometry). Per chunk, ONE lane launch serves every request;
+        each lane's sum runs over the chunks in the order of
+        :meth:`scan_program`, so every lane is bit-identical to the solo
+        program on that request."""
+        key = ("batch_scan", variant, tuple(call_shape), int(nb),
+               str(dtype), bool(interpret), tuple(options), int(n_chunks),
+               int(chunk_size), int(rb))
+
+        def build():
+            spec = get_spec(variant)
+            opts = spec.resolve_options(
+                {**dict(options), "nb": int(nb), "interpret": bool(interpret)})
+            shape = tuple(call_shape)
+            lanes = _with_precision(spec.lanes, dtype)
+
+            def prog(img_b, mat_s):
+                acc = lanes(img_b[:, 0], mat_s[0], shape, **opts)
+                for c in range(1, int(n_chunks)):
+                    acc += lanes(img_b[:, c], mat_s[c], shape, **opts)
+                return acc
+            return prog
+
+        return self.get_or_build(key, build)
+
+    def batch_fleet_program(self, *args, **kwargs) -> Callable:
+        """The fleet's rb-lane step program of the JAX package."""
+        raise _unported("batch_fleet_program (fleet execution)", "1")
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
@@ -250,12 +325,21 @@ def _add_host(vol: np.ndarray, sl, piece: torch.Tensor) -> None:
     torch.from_numpy(vol)[sl].add_(piece)
 
 
+def _as_triple(vol, w) -> tuple:
+    """A ``(slices, piece)`` write into ``vol`` as ``(vol, slices,
+    piece)``; a ``(target, slices, piece)`` write as it is."""
+    return w if len(w) == 3 else (vol, w[0], w[1])
+
+
 class _AsyncFlushQueue:
     """Depth-bounded device->host flush pipeline: step N's host adds
     overlap step N+1's kernels.
 
     The dispatching thread hands over one step's ``(volume slices,
-    device piece)`` writes right after launching the step and moves on.
+    device piece)`` writes into the constructor's volume, or ``(target
+    volume, slices, piece)`` triples (the rb-lane walk fans one step out
+    to rb request volumes through one queue, with ``vol=None``), right
+    after launching the step and moves on.
     For CUDA pieces, :meth:`put` records an event on the compute stream
     after the step's launch; a side stream waits on it, copies each piece
     into a pinned host buffer (``non_blocking``) and records its own
@@ -269,7 +353,7 @@ class _AsyncFlushQueue:
     in the order the sync walk adds, so the result is bit-identical.
     """
 
-    def __init__(self, vol: np.ndarray, device: torch.device,
+    def __init__(self, vol: Optional[np.ndarray], device: torch.device,
                  depth: int = 2):
         self._vol = vol
         self._device = device
@@ -285,6 +369,7 @@ class _AsyncFlushQueue:
         """Start the host copies of one step's writes; returns the host
         writes and the event that marks them done (None on the CPU,
         where the pieces are host memory already)."""
+        writes = tuple(_as_triple(self._vol, w) for w in writes)
         if self._copy is None:
             return writes, None
         ready = torch.cuda.Event()
@@ -292,12 +377,12 @@ class _AsyncFlushQueue:
         staged = []
         with torch.cuda.stream(self._copy):
             self._copy.wait_event(ready)
-            for sl, piece in writes:
+            for tgt, sl, piece in writes:
                 host = torch.empty(tuple(piece.shape), dtype=piece.dtype,
                                    pin_memory=True)
                 host.copy_(piece, non_blocking=True)
                 piece.record_stream(self._copy)
-                staged.append((sl, host))
+                staged.append((tgt, sl, host))
             copied = torch.cuda.Event()
             copied.record(self._copy)
         return tuple(staged), copied
@@ -313,8 +398,8 @@ class _AsyncFlushQueue:
                     with telemetry.span("flush", n_writes=len(writes)):
                         if copied is not None:
                             copied.synchronize()
-                        for sl, host in writes:
-                            _add_host(self._vol, sl, host)
+                        for tgt, sl, host in writes:
+                            _add_host(tgt, sl, host)
             except BaseException as exc:   # surfaced at put()/close()
                 self._error = exc
             finally:
@@ -388,12 +473,16 @@ class _FilteredChunkProducer:
     def drop(self, c: int) -> None:
         self._memo.pop(c, None)
 
-    def stacked(self, sched: StepMajorSchedule):
-        """All chunks, filtered once each, as the chunk grid stack."""
+    def stacked(self, sched: StepMajorSchedule,
+                img_s: Optional[torch.Tensor] = None):
+        """All chunks, filtered once each, as the chunk grid stack,
+        written into ``img_s`` (a zeroed grid: one lane of a batch) or a
+        new one."""
         geom = self._ex.geom
         dev = self._mat_p.device
-        img_s = torch.zeros((sched.n_chunks, sched.chunk_size, geom.nw,
-                             geom.nh), dtype=torch.float32, device=dev)
+        if img_s is None:
+            img_s = torch.zeros((sched.n_chunks, sched.chunk_size, geom.nw,
+                                 geom.nh), dtype=torch.float32, device=dev)
         mat_s = torch.empty((sched.n_chunks, sched.chunk_size, 3, 4),
                             dtype=torch.float32, device=dev)
         for c in range(sched.n_chunks):
@@ -440,15 +529,11 @@ class PlanExecutor:
             raise ValueError(
                 f"pipeline must be 'sync' or 'async', got {pipeline!r}")
         if fleet is not None:
-            raise _unported("fleet execution", "2")
+            raise _unported("fleet execution", "1")
         self.device = resolve_device(device)
         self.geom = geom
         self.plan = plan
         self._dtype = _plan_dtype(plan)
-        if plan.ingest != "offline":
-            raise _unported("ingest='stream'", "1")
-        if plan.request_batch != 1:
-            raise _unported("request batching", "1")
         self.cache = cache if cache is not None else default_program_cache()
         self.pipeline = pipeline
         self.pipeline_depth = int(pipeline_depth)
@@ -481,6 +566,13 @@ class PlanExecutor:
                                        n_chunks=sched.n_chunks,
                                        chunk_size=sched.chunk_size)
 
+    def _batch_scan_program(self, variant: str, call_shape,
+                            sched: StepMajorSchedule, rb: int) -> Callable:
+        return self.cache.batch_scan_program(
+            variant, call_shape, self.plan.nb, self._dtype,
+            self.plan.interpret, self.plan.options,
+            n_chunks=sched.n_chunks, chunk_size=sched.chunk_size, rb=rb)
+
     def warm(self) -> Dict[str, int]:
         """Build every distinct program the plan needs; return stats."""
         if self.plan.schedule == "step":
@@ -490,6 +582,24 @@ class PlanExecutor:
         else:
             for variant, shape in self.plan.program_keys:
                 self._program(variant, shape)
+        return self.cache.stats()
+
+    @property
+    def supports_request_batching(self) -> bool:
+        """Whether :meth:`execute_batch` can serve k requests with one
+        launch per step and chunk: step-major plans. Chunk-major plans
+        run the requests one after another in the service."""
+        return self.plan.schedule == "step"
+
+    def warm_batch(self, rb: int) -> Dict[str, int]:
+        """Build the rb-lane program of every (variant, shape) so the
+        first formed batch of ``rb`` requests builds nothing. A no-op for
+        rb < 2 or a plan that does not batch."""
+        if rb < 2 or not self.supports_request_batching:
+            return self.cache.stats()
+        sched = self.plan.step_major
+        for variant, shape in self.plan.program_keys:
+            self._batch_scan_program(variant, shape, sched, rb)
         return self.cache.stats()
 
     # ---- execute-stage helpers ------------------------------------------
@@ -574,19 +684,23 @@ class PlanExecutor:
         return sp
 
     @staticmethod
-    def _flush_host(vol: np.ndarray, writes) -> None:
-        for sl, piece in writes:
-            _add_host(vol, sl, piece.cpu())
+    def _flush_host(vol: Optional[np.ndarray], writes) -> None:
+        for w in writes:
+            tgt, sl, piece = _as_triple(vol, w)
+            _add_host(tgt, sl, piece.cpu())
 
     def _place(self, vol, writes, flush, pending):
-        """Land one step's writes; returns the writes still pending.
+        """Land one step's writes (pairs into ``vol``, or the batch's
+        ``(target, slices, piece)`` triples with ``vol=None``); returns
+        the writes still pending.
 
         On the card the pieces add into the device volume in place. On
         the host they go to the async flusher, or (sync) the previous
         step's pieces are added now, after this step's launch."""
         if self.plan.out == "device":
-            for (i_s, j_s, k_s), piece in writes:
-                vol[i_s, j_s, k_s] += piece
+            for w in writes:
+                tgt, (i_s, j_s, k_s), piece = _as_triple(vol, w)
+                tgt[i_s, j_s, k_s] += piece
             return ()
         if flush is not None:
             flush.put(writes)
@@ -641,6 +755,43 @@ class PlanExecutor:
         if self.plan.out == "host":
             self._flush_host(vol, pending)
         return vol
+
+    def _execute_step_major_batch(self, vols, img_b: torch.Tensor,
+                                  mat_s: torch.Tensor,
+                                  sched: StepMajorSchedule):
+        """:meth:`_execute_step_major` for rb requests: per step ONE
+        rb-lane program fills the step's box of every request's volume.
+
+        ``img_b`` stacks the rb chunk grids ``(rb, n_chunks, chunk_size,
+        ...)``; ``mat_s`` is shared. Each step's writes fan out to the rb
+        volumes as ``(target, slices, piece)`` triples through the same
+        placement as the solo walk (in place on the card; the async
+        flusher or the sync double buffer on the host), so every volume
+        receives its adds in the solo walk's order: bit-identical."""
+        rb = len(vols)
+
+        def fanout(step, out_b):
+            return tuple((vols[r], sl, piece) for r in range(rb)
+                         for sl, piece in self._step_writes(step, out_b[r]))
+
+        flush = self._open_flush(None)
+        pending = ()
+        try:
+            for work in sched.steps:
+                step = work.step
+                prog = self._batch_scan_program(step.variant,
+                                                step.call_shape, sched, rb)
+                with self._step_span(step, sched.n_scan, schedule="step",
+                                     rb=rb):
+                    out = prog(img_b, self._translated(mat_s, step))
+                pending = self._place(None, fanout(step, out), flush,
+                                      pending)
+        finally:
+            if flush is not None:
+                flush.close()
+        if self.plan.out == "host":
+            self._flush_host(None, pending)
+        return vols
 
     def _walk_chunks(self, chunk_inputs, n_chunks: int):
         """The chunk-major walk over ``n_chunks`` chunks of
@@ -728,12 +879,18 @@ class PlanExecutor:
     def _chunk_inputs(self, projections: torch.Tensor, mat_p: torch.Tensor,
                       s0: int, s1: int):
         """Filter + transpose the raw rows of one padded chunk [s0, s1)."""
-        plan = self.plan
-        raw = projections[s0:min(s1, plan.n_proj)]
+        raw = projections[s0:min(s1, self.plan.n_proj)]
+        return self._filtered_rows(raw, mat_p[s0:s1], s1 - s0)
+
+    def _filtered_rows(self, raw: torch.Tensor, mat_c: torch.Tensor,
+                       n_rows: int):
+        """Filter + transpose the raw views ``raw`` of one chunk and pad
+        them to its ``n_rows`` (the one filtering path of the offline
+        and the streamed walks)."""
         img_c = bp.transpose_projections(
-            fdk_filter_chunk(raw, self.geom, plan.n_proj))
+            fdk_filter_chunk(raw, self.geom, self.plan.n_proj))
         # tail chunk: zero images pair with the repeated matrices
-        return _pad_rows(img_c, mat_p[s0:s1], s1 - s0)
+        return _pad_rows(img_c, mat_c, n_rows)
 
     def reconstruct(self, projections):
         """Filtered FDK: (np, nh, nw) raw -> (nz, ny, nx) volume.
@@ -771,13 +928,471 @@ class PlanExecutor:
             return np.transpose(vol, (2, 1, 0))
         return bp.volume_to_native(vol)
 
+    def execute_batch(self, projections_seq: Sequence):
+        """Reconstruct k same-bucket requests with one launch per step and
+        chunk.
+
+        ``projections_seq`` holds k raw projection stacks, each what
+        :meth:`reconstruct` takes. Each request is filtered as
+        :meth:`reconstruct` filters it, into its lane of one stacked
+        chunk grid ``(k, n_chunks, chunk_size, nw, nh)`` on the device;
+        the matrices are shared (same bucket, same geometry). Every step
+        then runs the rb-lane program (:meth:`ProgramCache.
+        batch_scan_program`): one lane launch per chunk serves all k
+        requests. Returns k volumes, each bit-identical to
+        :meth:`reconstruct` on that request alone.
+
+        Requires a step-major plan (``supports_request_batching``);
+        k == 1 just delegates to :meth:`reconstruct`.
+        """
+        reqs = list(projections_seq)
+        k = len(reqs)
+        if k == 0:
+            return []
+        if k == 1:
+            return [self.reconstruct(reqs[0])]
+        plan = self.plan
+        if not self.supports_request_batching:
+            raise ValueError(
+                "execute_batch serves k requests per launch of the "
+                "step-major walk; plan with schedule='step', got "
+                f"{plan.schedule!r} (callers check supports_request_"
+                "batching and fall back to sequential reconstruct calls)")
+        reqs = [self._as_input("projections", p) for p in reqs]
+        for p in reqs:
+            if p.shape[0] != plan.n_proj:
+                raise ValueError(
+                    f"execute_batch expects {plan.n_proj} projections "
+                    f"per request (the plan's full scan), got "
+                    f"{p.shape[0]}")
+        mat_p = _pad_mats(projection_matrices(self.geom, self.device),
+                          plan.n_proj_padded)
+        sched = plan.step_major
+        img_b = torch.zeros((k, sched.n_chunks, sched.chunk_size,
+                             self.geom.nw, self.geom.nh),
+                            dtype=torch.float32, device=self.device)
+        for r, p in enumerate(reqs):
+            _, mat_s = _FilteredChunkProducer(self, p, mat_p).stacked(
+                sched, img_b[r])
+        if self._single_full_call() and plan.out == "device":
+            step = plan.steps[0]
+            prog = self._batch_scan_program(step.variant, step.call_shape,
+                                            sched, k)
+            with self._step_span(step, sched.n_scan, schedule="step", rb=k):
+                acc = prog(img_b, mat_s)
+            return [bp.volume_to_native(acc[r]) for r in range(k)]
+        vols = self._execute_step_major_batch(
+            [self._alloc() for _ in range(k)], img_b, mat_s, sched)
+        if isinstance(vols[0], np.ndarray):
+            return [np.transpose(v, (2, 1, 0)) for v in vols]
+        return [bp.volume_to_native(v) for v in vols]
+
+    def open_stream(self, *, max_pending_chunks: int = 2,
+                    on_ready: Optional[Callable[[int], None]] = None
+                    ) -> "StreamingExecutor":
+        """Open an online (push-driven) reconstruction on this executor:
+        views are pushed as the scanner produces them, each view chunk is
+        filtered and back-projected once it is complete, and ``close()``
+        returns the volume bit-identical to :meth:`reconstruct` on the
+        assembled scan. Needs a chunk-major plan (``ingest="stream"``).
+        See :class:`StreamingExecutor`."""
+        return StreamingExecutor(self, max_pending_chunks=max_pending_chunks,
+                                 on_ready=on_ready)
+
     # ---- not ported yet ---------------------------------------------------
 
-    def open_stream(self, **_):
-        raise _unported("open_stream (online ingest)", "1")
-
-    def execute_batch(self, projections_seq):
-        raise _unported("execute_batch (request batching)", "1")
-
     def execute_distributed(self, img_t, mats, mesh, **_):
-        raise _unported("execute_distributed", "2")
+        raise _unported("execute_distributed", "1")
+
+
+# --------------------------------------------------------------------------
+# Online (streaming) execution: fold view chunks as they arrive
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StreamReport(telemetry.EmitMixin):
+    """What one closed stream did, in overlap terms.
+
+    ``acquire_s`` is the wall from the first view's arrival to the last
+    one's (the scanner's rotation), ``compute_s`` the summed fold and
+    finish wall, and ``tail_s`` the wall from the LAST view's arrival to
+    the finished volume: what streaming adds to acquisition.
+    ``hidden_fraction`` is the share of compute that ran during
+    acquisition instead of after it.
+    """
+
+    n_views: int
+    n_chunks: int
+    acquire_s: float
+    compute_s: float
+    tail_s: float
+
+    @property
+    def hidden_fraction(self) -> float:
+        if self.compute_s <= 0.0:
+            return 1.0
+        return max(0.0, min(1.0, 1.0 - self.tail_s / self.compute_s))
+
+
+class StreamingExecutor:
+    """Online reconstruction: push projections as they arrive, fold each
+    view chunk the moment it is complete.
+
+    The arrival contract:
+
+      * ``push(views, start=None)`` takes one or more raw views (numpy or
+        a CPU tensor), by default the next rows in order; an explicit
+        ``start`` allows ANY arrival order within a chunk (each view
+        lands in its chunk's host buffer by row). Each view arrives
+        exactly once.
+      * Chunk ``c`` is *ready* once all its raw rows are present. Ready
+        chunks fold strictly in chunk order, the order of the offline
+        chunk-major walk (``PlanExecutor._walk_chunks``): per step the
+        device-side running sum ``((p0 + p1) + p2)...`` over the chunk
+        parts is the same left-associated float32 sum, each chunk is
+        filtered by the offline walk's own ``_filtered_rows``, and the
+        final placement adds each step's sum into a zero volume, so
+        ``close()`` is bit-identical to ``reconstruct`` on the scan.
+      * At most ``max_pending_chunks`` ready, unfolded chunks may exist:
+        a producer faster than the folds blocks in ``push`` (bounded
+        buffering). ``max_pending_seen`` is the high-water mark.
+      * ``close()`` needs every view; it waits for the last fold and
+        the placement and returns the volume; ``report`` then holds the
+        overlap metrics.
+
+    A ready chunk's host buffer (pinned on a card) is copied to the
+    device with ``non_blocking``, filtered there and folded. Two drive
+    modes: by default a folder thread of this executor folds ready
+    chunks (it enters the executor's device); with ``on_ready=`` each
+    ready chunk is reported to the callback instead and an external
+    driver (the service's stream worker, which folds the same chunk of
+    several sessions in one lane launch) calls ``filtered`` /
+    ``accept_part`` / ``chunk_done`` itself. An error in a fold poisons
+    the stream: ``push`` and ``close`` raise it.
+    """
+
+    def __init__(self, ex: PlanExecutor, *, max_pending_chunks: int = 2,
+                 on_ready: Optional[Callable[[int], None]] = None):
+        plan = ex.plan
+        if plan.schedule != "chunk":
+            raise ValueError(
+                "streaming folds view chunks as they arrive (chunk-major "
+                "by construction); plan with ingest='stream' (or "
+                f"schedule='chunk'), got schedule={plan.schedule!r}")
+        if max_pending_chunks < 1:
+            raise ValueError(
+                f"max_pending_chunks must be >= 1, got {max_pending_chunks}")
+        self._ex = ex
+        self.geom = ex.geom
+        self._plan = plan
+        self._chunk_bounds = plan.chunks
+        self._n_chunks = len(self._chunk_bounds)
+        self._n_views = plan.n_proj
+        self._chunk_size = plan.chunk_size
+        self._max_pending = int(max_pending_chunks)
+        self._on_ready = on_ready
+        self._mat_p = _pad_mats(projection_matrices(ex.geom, ex.device),
+                                plan.n_proj_padded)
+
+        self._cond = threading.Condition()
+        self._buffers: Dict[int, torch.Tensor] = {}
+        self._missing = {c: self._raw_rows(c) for c in range(self._n_chunks)}
+        self._seen = np.zeros(self._n_views, bool)
+        self._filtered_memo: Dict[int, tuple] = {}
+        self._complete: set = set()
+        self._accs: list = [None] * len(plan.steps)
+        self._next_fold = 0
+        self._next_row = 0
+        self._rows = 0
+        self._ingest_closed = False
+        self._error: Optional[BaseException] = None
+        self._result = None
+        self._finished = threading.Event()
+        self.max_pending_seen = 0
+
+        self._t_first: Optional[float] = None
+        self._t_last: Optional[float] = None
+        self._t_done: Optional[float] = None
+        self._busy = 0.0
+
+        if on_ready is None:
+            self._thread = threading.Thread(
+                target=self._drive, name="recon-stream-fold", daemon=True)
+            self._thread.start()
+
+    # ---- ingest side ------------------------------------------------------
+
+    def _raw_rows(self, c: int) -> int:
+        """Raw (un-padded) views chunk ``c`` must receive."""
+        s0, s1 = self._chunk_bounds[c]
+        return min(s1, self._n_views) - s0
+
+    def _raise_if_failed(self) -> None:
+        if self._error is not None:
+            raise self._error
+
+    def _host_buffer(self, c: int) -> torch.Tensor:
+        """Chunk ``c``'s host buffer: pinned where the device is a card,
+        so its copy there runs without a staging copy."""
+        shape = (self._raw_rows(c), self.geom.nh, self.geom.nw)
+        return torch.zeros(shape, dtype=torch.float32,
+                           pin_memory=self._ex.device.type == "cuda")
+
+    def push(self, views, start: Optional[int] = None) -> None:
+        """Deliver view rows ``[start, start + k)`` (default: the next
+        rows in order). Blocks only for backpressure, when
+        ``max_pending_chunks`` ready chunks are already waiting."""
+        if isinstance(views, torch.Tensor):
+            views = views.detach().cpu().numpy()
+        views = np.asarray(views, np.float32)
+        if views.ndim == 2:
+            views = views[None]
+        if views.ndim != 3 or views.shape[1:] != (self.geom.nh,
+                                                  self.geom.nw):
+            raise ValueError(
+                f"push expects (k, nh, nw) or (nh, nw) views of detector "
+                f"shape ({self.geom.nh}, {self.geom.nw}), got "
+                f"{tuple(views.shape)}")
+        k = views.shape[0]
+        with self._cond:
+            self._raise_if_failed()
+            if self._ingest_closed:
+                raise RuntimeError("push() after close()")
+            first = self._next_row if start is None else int(start)
+            if first < 0 or first + k > self._n_views:
+                raise ValueError(
+                    f"views [{first}, {first + k}) outside the stream's "
+                    f"[0, {self._n_views}) scan")
+            if self._t_first is None:
+                self._t_first = time.perf_counter()
+            for off in range(k):
+                r = first + off
+                if self._seen[r]:
+                    raise ValueError(f"view {r} pushed twice")
+                c = r // self._chunk_size
+                s0, _ = self._chunk_bounds[c]
+                buf = self._buffers.get(c)
+                if buf is None:
+                    buf = self._buffers[c] = self._host_buffer(c)
+                buf.numpy()[r - s0] = views[off]
+                self._seen[r] = True
+                self._rows += 1
+                self._missing[c] -= 1
+                if self._missing[c] == 0:
+                    self._admit_ready(c)
+            self._next_row = max(self._next_row, first + k)
+            self._t_last = time.perf_counter()
+            telemetry.instant("stream.push", first=first, k=k,
+                              rows=self._rows)
+            self._cond.notify_all()
+
+    def _admit_ready(self, c: int) -> None:
+        """Mark chunk ``c`` ready (under ``_cond``): backpressure first,
+        then hand it to the folder (thread or ``on_ready`` callback)."""
+        while (len(self._complete) >= self._max_pending
+               and self._error is None):
+            self._cond.wait(0.05)
+        self._raise_if_failed()
+        self._complete.add(c)
+        self.max_pending_seen = max(self.max_pending_seen,
+                                    len(self._complete))
+        self._cond.notify_all()
+        if self._on_ready is not None:
+            # deliver OUTSIDE the lock: the callback may take locks of
+            # its own (the service's former)
+            self._cond.release()
+            try:
+                self._on_ready(c)
+            finally:
+                self._cond.acquire()
+
+    def close(self):
+        """Finish the stream: needs every view delivered; waits for the
+        remaining folds and the placement, returns the volume."""
+        with self._cond:
+            if self._ingest_closed:
+                raise RuntimeError("stream already closed")
+            self._ingest_closed = True
+            if self._error is None and self._rows < self._n_views:
+                self._error = RuntimeError(
+                    f"stream closed after {self._rows} of "
+                    f"{self._n_views} views: every view must be pushed "
+                    f"before close()")
+                self._finished.set()
+            self._cond.notify_all()
+        self._finished.wait()
+        with self._cond:
+            self._raise_if_failed()
+            return self._result
+
+    def fail(self, exc: BaseException) -> None:
+        """Poison the stream (external drivers report fold errors here);
+        ``push``/``close`` re-raise it."""
+        with self._cond:
+            if self._error is None:
+                self._error = exc
+            self._finished.set()
+            self._cond.notify_all()
+
+    # ---- fold side (the folder thread, or the service's stream worker) ----
+
+    @property
+    def next_fold(self) -> int:
+        """Index of the next chunk that must fold (the order contract)."""
+        with self._cond:
+            return self._next_fold
+
+    def _filter_pair(self, buf: torch.Tensor, c: int):
+        """Copy one ready chunk to the device, filter and transpose it:
+        ``PlanExecutor._filtered_rows``, the offline walk's own path."""
+        s0, s1 = self._chunk_bounds[c]
+        raw = buf.to(self._ex.device, non_blocking=True)
+        with telemetry.span("filter.chunk", chunk=c, n_views=int(s1 - s0)):
+            return self._ex._filtered_rows(raw, self._mat_p[s0:s1], s1 - s0)
+
+    def filtered(self, c: int):
+        """Filtered ``(img_c, mat_c)`` of ready chunk ``c``."""
+        with self._cond:
+            pair = self._filtered_memo.pop(c, None)
+            if pair is not None:
+                return pair
+            if c not in self._complete:
+                raise RuntimeError(f"chunk {c} is not ready")
+            buf = self._buffers[c]
+        return self._filter_pair(buf, c)
+
+    def prefilter(self, c: int) -> None:
+        """Filter chunk ``c`` now if it is ready (its kernels queue behind
+        the current fold's on the device)."""
+        with self._cond:
+            if (c >= self._n_chunks or c in self._filtered_memo
+                    or c not in self._complete):
+                return
+            buf = self._buffers[c]
+        pair = self._filter_pair(buf, c)
+        with self._cond:
+            self._filtered_memo.setdefault(c, pair)
+
+    def accept_part(self, i: int, part: torch.Tensor) -> None:
+        """Fold one kernel output into step ``i``'s device accumulator
+        (in place: the running sum in chunk order)."""
+        acc = self._accs[i]
+        self._accs[i] = part if acc is None else acc.add_(part)
+
+    def sync(self) -> None:
+        """Wait for the kernels this thread queued on the card: a fold is
+        done, and its wall counted, when its kernels are."""
+        if self._ex.device.type == "cuda":
+            torch.cuda.current_stream(self._ex.device).synchronize()
+
+    def add_busy(self, seconds: float) -> None:
+        with self._cond:
+            self._busy += max(0.0, seconds)
+
+    def fold(self, c: int) -> None:
+        """Fold ready chunk ``c`` into every step accumulator (one lane;
+        the service's lane path drives ``filtered`` / ``accept_part`` /
+        ``chunk_done`` itself)."""
+        t0 = time.perf_counter()
+        with telemetry.span("stream.fold", chunk=c):
+            img_c, mat_c = self.filtered(c)
+            self.prefilter(c + 1)
+            ex = self._ex
+            for i, step in enumerate(self._plan.steps):
+                prog = ex._program(step.variant, step.call_shape)
+                with ex._step_span(step, int(img_c.shape[0]),
+                                   schedule="stream"):
+                    part = prog(img_c, ex._translated(mat_c, step))
+                self.accept_part(i, part)
+            self.sync()
+            self.add_busy(time.perf_counter() - t0)
+            self.chunk_done(c)
+
+    def chunk_done(self, c: int) -> None:
+        """Retire folded chunk ``c``; the LAST chunk triggers the
+        placement of the step accumulators into the volume."""
+        with self._cond:
+            if c != self._next_fold:
+                raise RuntimeError(
+                    f"chunk {c} folded out of order (expected "
+                    f"{self._next_fold}): the chunk-order fold is the "
+                    f"exactness contract")
+            self._complete.discard(c)
+            self._buffers.pop(c, None)
+            self._next_fold = c + 1
+            finish = self._next_fold == self._n_chunks
+            self._cond.notify_all()
+        if finish:
+            with telemetry.span("stream.tail", n_chunks=self._n_chunks):
+                self._finish()
+
+    def _finish(self) -> None:
+        """Place every step accumulator into a zero volume, as the
+        offline chunk-major walk places its pieces (in place on the
+        card; on the host through the executor's flush). Its wall counts
+        as compute."""
+        t0 = time.perf_counter()
+        ex = self._ex
+        plan = self._plan
+        if plan.out == "device":
+            if ex._single_full_call():
+                vol_t = self._accs[0]
+            else:
+                vol_t = ex._alloc()
+                for step, acc in zip(plan.steps, self._accs):
+                    ex._place(vol_t, ex._step_writes(step, acc), None, ())
+            result = bp.volume_to_native(vol_t)
+        else:
+            vol = ex._alloc()
+            flush = ex._open_flush(vol)
+            try:
+                for step, acc in zip(plan.steps, self._accs):
+                    writes = ex._step_writes(step, acc)
+                    if flush is not None:
+                        flush.put(writes)
+                    else:
+                        ex._flush_host(vol, writes)
+            finally:
+                if flush is not None:
+                    flush.close()
+            result = np.transpose(vol, (2, 1, 0))
+        self.sync()
+        with self._cond:
+            self._accs = [None] * len(plan.steps)
+            self._result = result
+            self._t_done = time.perf_counter()
+            self._busy += self._t_done - t0
+            self._finished.set()
+            self._cond.notify_all()
+
+    def _drive(self) -> None:
+        """The folder thread: fold ready chunks in index order."""
+        try:
+            with device_scope(self._ex.device):
+                for c in range(self._n_chunks):
+                    with self._cond:
+                        while c not in self._complete and \
+                                self._error is None:
+                            self._cond.wait(0.1)
+                        if self._error is not None:
+                            return
+                    self.fold(c)
+        except Exception as exc:  # surfaced at push()/close()
+            self.fail(exc)
+
+    # ---- introspection ----------------------------------------------------
+
+    @property
+    def report(self) -> Optional[StreamReport]:
+        """Overlap metrics once the stream finished, else None."""
+        with self._cond:
+            if self._t_done is None:
+                return None
+            t_first = self._t_first if self._t_first is not None else 0.0
+            t_last = (self._t_last if self._t_last is not None
+                      else self._t_done)
+            return StreamReport(
+                n_views=self._n_views, n_chunks=self._n_chunks,
+                acquire_s=max(0.0, t_last - t_first),
+                compute_s=self._busy,
+                tail_s=max(0.0, self._t_done - t_last))

@@ -33,11 +33,11 @@ programs the projections.
 
 Each solve is one ``solve`` span with one ``solve.iter`` span per
 iteration (``runtime.telemetry``), and :class:`SolveReport` has the
-shared ``as_dict()``/``emit()`` report contract. The JAX package also
-serves solver plans from its service's buckets with a fleet; those wait
-for ROADMAP.md queue 1 items 1-2 (serving, the fleet). The duck-type
-surface the service will need (``warm`` / ``reconstruct`` /
-``pipeline`` / ``tuned``) is here.
+shared ``as_dict()``/``emit()`` report contract. ``runtime.service``
+serves solver plans from its buckets through the duck-type surface
+(``warm`` / ``reconstruct`` / ``pipeline`` / ``tuned`` /
+``supports_request_batching``); the JAX package's fleet waits for
+ROADMAP.md queue 1 item 1.
 """
 
 from __future__ import annotations

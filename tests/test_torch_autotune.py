@@ -431,12 +431,16 @@ def test_explicit_schedule_is_pinned(setup, tmp_path):
 
 
 def test_batch_axis_is_empty_until_batching_is_ported(setup):
+    """Request batching is ported: the batch axis is the JAX package's,
+    rb in (1, 2, 4, 8) but the current one on a step-major plan, and
+    empty on a chunk-major one."""
     _, t, _, _ = setup
     cfg, _ = at._heuristic_config(t, "algorithm1_mp", **CPU, **OPTS)
     assert cfg.schedule == "step"
-    assert at._batch_axis(cfg) == []
     jcfg, _ = jat._heuristic_config(setup[0], "algorithm1_mp", **OPTS)
-    assert len(jat._batch_axis(jcfg)) == 3    # what waits for serving
+    assert [c.max_batch for c in at._batch_axis(cfg)] == \
+        [c.max_batch for c in jat._batch_axis(jcfg)] == [2, 4, 8]
+    assert at._batch_axis(dataclasses.replace(cfg, schedule="chunk")) == []
 
 
 def test_ladder_puts_the_cuda_variants_first_on_a_card():

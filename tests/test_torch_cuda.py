@@ -87,7 +87,9 @@ def test_kernels_match_plain_and_oracle(cuda, n, det, nproj, block):
             mid = n // 2
             assert rel_rmse(out[..., mid], ref[..., mid]) < BAR, name
     assert ks.LAUNCHES == {"backproject_subline_kernel": 1,
-                           "backproject_subline_fused": 1}
+                           "backproject_subline_fused": 1,
+                           "backproject_subline_kernel_lanes": 0,
+                           "backproject_subline_fused_lanes": 0}
 
 
 @pytest.mark.parametrize("nz,det,nproj", [(70, 64, 4), (200, 128, 4),
@@ -120,7 +122,9 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
     for nb, loop in ((1, True), (2, True), (3, False)):
         ops.backproject_subline(img_t, mats, shape, nb=nb, proj_loop=loop)
     assert ks.LAUNCHES == {"backproject_subline_kernel": 2,
-                           "backproject_subline_fused": 1}
+                           "backproject_subline_fused": 1,
+                           "backproject_subline_kernel_lanes": 0,
+                           "backproject_subline_fused_lanes": 0}
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -175,7 +179,9 @@ def test_onehot_kernels_match_plain_and_oracle(cuda, n, det, nproj, block,
     k1 = ks.backproject_subline_kernel(img_t, mats, shape)
     assert rel_rmse(_cpu(k3), _cpu(k1)) < ONEHOT_K1_BAR
     assert ko.LAUNCHES == {"backproject_onehot_kernel": 1,
-                           "backproject_onehot_fused": 1}
+                           "backproject_onehot_fused": 1,
+                           "backproject_onehot_kernel_lanes": 0,
+                           "backproject_onehot_fused_lanes": 0}
 
 
 @pytest.mark.parametrize("n,det,nproj", SWEEP + [(16, 48, 4)])
@@ -206,7 +212,9 @@ def test_banded_kernels_match_plain_and_oracle(cuda, n, det, nproj, block,
                                               nb=group, **kw)
         _check(out[:ni, :nj], plain[:ni, :nj], ref, n % 2, f"group={group}")
     assert kb.LAUNCHES == {"backproject_banded_kernel": 1,
-                           "backproject_banded_fused": 1}
+                           "backproject_banded_fused": 1,
+                           "backproject_banded_kernel_lanes": 0,
+                           "backproject_banded_fused_lanes": 0}
 
 
 @pytest.mark.parametrize("nz,det,nproj", [(70, 64, 4), (1000, 512, 4),
@@ -247,7 +255,9 @@ def test_two_hot_form_on_every_stage2_path(cuda, nz, det, nproj, lines):
         assert torch.equal(
             ko.backproject_onehot_fused(img_t, mats, shape, nb=nb), k3), nb
     assert ko.LAUNCHES == {"backproject_onehot_kernel": 1,
-                           "backproject_onehot_fused": 3}
+                           "backproject_onehot_fused": 3,
+                           "backproject_onehot_kernel_lanes": 0,
+                           "backproject_onehot_fused_lanes": 0}
 
 
 def test_k_chunk_and_bands_change_no_bit(cuda):
@@ -279,9 +289,13 @@ def test_cuda_tensors_never_reach_the_new_plain_versions(cuda, monkeypatch):
         ops.backproject_onehot(img_t, mats, shape, nb=nb, proj_loop=loop)
         ops.backproject_banded(img_t, mats, shape, nb=nb, proj_loop=loop)
     assert ko.LAUNCHES == {"backproject_onehot_kernel": 2,
-                           "backproject_onehot_fused": 1}
+                           "backproject_onehot_fused": 1,
+                           "backproject_onehot_kernel_lanes": 0,
+                           "backproject_onehot_fused_lanes": 0}
     assert kb.LAUNCHES == {"backproject_banded_kernel": 2,
-                           "backproject_banded_fused": 1}
+                           "backproject_banded_fused": 1,
+                           "backproject_banded_kernel_lanes": 0,
+                           "backproject_banded_fused_lanes": 0}
 
 
 @pytest.mark.parametrize("variant,kernel", [
@@ -330,7 +344,9 @@ def test_banded_kernels_past_the_old_depth_limit(cuda, nz, det, nproj):
         assert torch.equal(out, k1)
         assert rel_rmse(_cpu(out), _cpu(plain)) < BAR
     assert kb.LAUNCHES == {"backproject_banded_kernel": 1,
-                           "backproject_banded_fused": 1}
+                           "backproject_banded_fused": 1,
+                           "backproject_banded_kernel_lanes": 0,
+                           "backproject_banded_fused_lanes": 0}
 
 
 @pytest.mark.parametrize("n,det,nproj", [(12, 16, 4), (20, 12, 7),
@@ -431,7 +447,9 @@ def test_k2_at_every_nb_gives_k1_bit_for_bit(cuda):
         assert torch.equal(
             ks.backproject_subline_fused(img_t, mats, shape, nb=nb), k1), nb
     assert ks.LAUNCHES == {"backproject_subline_kernel": 1,
-                           "backproject_subline_fused": 5}
+                           "backproject_subline_fused": 5,
+                           "backproject_subline_kernel_lanes": 0,
+                           "backproject_subline_fused_lanes": 0}
 
 
 def test_tiled_kernel_layout_and_occupancy(cuda):
@@ -709,3 +727,122 @@ def test_autotune_auto_measures_the_cuda_variants(cuda, tmp_path):
     ref = repro_torch.reconstruct(p, g, variant="algorithm1_mp")
     bar = BAR if cfg.precision == "f32" else 2e-2
     assert rel_rmse(_cpu(vol), _cpu(ref)) < bar
+
+
+# ---- rb-lane launches (request batching) -----------------------------------
+
+LANE_SWEEP = [(16, 24, 6), (13, 17, 5), (20, 12, 7)]
+# (family, solo ops wrapper, lane ops wrapper, bar against the plain version)
+LANE_FAMILIES = [("subline", ops.backproject_subline,
+                  ops.backproject_subline_lanes, BAR),
+                 ("onehot", ops.backproject_onehot,
+                  ops.backproject_onehot_lanes, ONEHOT_PLAIN_BAR),
+                 ("banded", ops.backproject_banded,
+                  ops.backproject_banded_lanes, BAR)]
+
+
+def _lanes_case(n, det, nproj, rb, dev, seed=0):
+    g = standard_geometry(n=n, n_det=det, n_proj=nproj)
+    img = np.random.RandomState(seed).rand(rb, nproj, g.nh, g.nw).astype(
+        np.float32)
+    img_b = torch.stack([transpose_projections(torch.from_numpy(x).to(dev))
+                         for x in img])
+    return img_b, projection_matrices(g, dev), g.volume_shape_xyz
+
+
+def _lane_counts():
+    out = {}
+    for mod in (ks, ko, kb):
+        out.update({k: v for k, v in mod.LAUNCHES.items()
+                    if k.endswith("_lanes")})
+    return out
+
+
+@pytest.mark.parametrize("rb", [1, 3, 8])
+@pytest.mark.parametrize("n,det,nproj", LANE_SWEEP)
+@pytest.mark.parametrize("family,solo,lanes,bar", LANE_FAMILIES,
+                         ids=[f[0] for f in LANE_FAMILIES])
+def test_lane_launches_equal_solo_and_plain(cuda, rb, n, det, nproj, family,
+                                            solo, lanes, bar):
+    """Each lane of one rb-lane launch (K1/K3/K5 at nb=1, K2/K4/K6 with
+    the nb loop) equals the solo launch on that lane bit for bit, and
+    the plain version within the sweep bar; one launch serves all
+    lanes."""
+    img_b, mats, shape = _lanes_case(n, det, nproj, rb, cuda)
+    for nb, loop in ((1, False), (nproj, True)):
+        before = sum(_lane_counts().values())
+        out = lanes(img_b, mats, shape, nb=nb, proj_loop=loop)
+        assert sum(_lane_counts().values()) == before + 1
+        assert out.shape == (rb,) + tuple(shape)
+        for r in range(rb):
+            one = solo(img_b[r], mats, shape, nb=nb, proj_loop=loop)
+            assert torch.equal(out[r], one), (family, nb, r)
+            plain = solo(img_b[r].cpu(), mats.cpu(), shape, nb=nb,
+                         proj_loop=loop, device="cpu")
+            assert rel_rmse(_cpu(out[r]), _cpu(plain)) < bar, (family, nb)
+    fused = f"backproject_{family}_fused_lanes"
+    assert _lane_counts()[fused] == 1
+    assert _lane_counts()[f"backproject_{family}_kernel_lanes"] == 1
+
+
+def test_lane_launch_on_strided_lanes(cuda):
+    """The batch programs hand the kernel one chunk of every request's
+    stacked grid: lanes far apart, each lane contiguous."""
+    img_b, mats, shape = _lanes_case(16, 24, 4, 6, cuda)
+    grid = img_b.reshape(3, 2, 4, *img_b.shape[2:])    # (rb, chunks, ...)
+    for c in range(2):
+        out = ops.backproject_subline_lanes(grid[:, c], mats, shape)
+        for r in range(3):
+            assert torch.equal(out[r], ops.backproject_subline(
+                grid[r, c].contiguous(), mats, shape))
+
+
+def test_failed_lane_launch_raises_and_does_not_fall_back(cuda,
+                                                          monkeypatch):
+    """Lanes that overlap (a lane stride of 0) are refused by the kernel's
+    entry: the wrapper raises, launches nothing else and never runs a
+    plain version or a loop of solo launches."""
+    img_b, mats, shape = _lanes_case(16, 24, 6, 1, cuda)
+    overlapping = img_b.expand(3, -1, -1, -1)
+
+    def refuse(*_, **__):
+        raise AssertionError("fell back after a failed lane launch")
+
+    for mod, name in ((ks, "backproject_subline_plain"),
+                      (ko, "backproject_onehot_plain"),
+                      (kb, "backproject_banded_plain"),
+                      (ks, "launch_tile")):
+        monkeypatch.setattr(mod, name, refuse)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ks.backproject_subline_kernel_lanes(overlapping, mats, shape)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ko.backproject_onehot_fused_lanes(overlapping, mats, shape, nb=2)
+    img_bb, band, bw = kb.band_schedule(img_b[0], mats, shape, block=(4, 8),
+                                        bw=32, group=1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kb.backproject_banded_kernel_lanes(
+            img_bb[None].expand(3, -1, -1, -1, -1), mats, band, shape,
+            bw=bw, nw=24)
+    assert sum(_lane_counts().values()) == 0
+
+
+def test_execute_batch_on_card_equals_solo(cuda):
+    """execute_batch through each CUDA variant: every request's volume is
+    its solo reconstruct bit for bit, with one lane launch per chunk."""
+    from repro_torch.runtime.executor import PlanExecutor, ProgramCache
+    from repro_torch.runtime.planner import plan_reconstruction
+    g = standard_geometry(n=32, n_det=48, n_proj=16)
+    rng = np.random.RandomState(2)
+    reqs = [rng.rand(16, g.nh, g.nw).astype(np.float32) for _ in range(3)]
+    for variant, fused in (("subline_pl", "backproject_subline_fused_lanes"),
+                           ("onehot_pl", "backproject_onehot_fused_lanes"),
+                           ("banded_pl", "backproject_banded_fused_lanes")):
+        plan = plan_reconstruction(g, variant, nb=4, proj_batch=8,
+                                   out="device")
+        ex = PlanExecutor(g, plan, cache=ProgramCache(), device=cuda)
+        solo = [ex.reconstruct(p) for p in reqs]
+        before = _lane_counts()[fused]
+        bat = ex.execute_batch(reqs)
+        assert _lane_counts()[fused] - before == 2     # two chunks
+        for a, b in zip(solo, bat):
+            assert torch.equal(a, b), variant

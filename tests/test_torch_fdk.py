@@ -216,18 +216,22 @@ def test_options_fields_match_jax():
 # combinations that still name bf16 and run in test_bf16_options_run;
 # variant="auto" and tuning= are ported too: their cases (kw0, kw1, kw2,
 # kw7) became combinations with service= or devices=, and the options
-# alone run in tests/test_torch_autotune.py
+# alone run in tests/test_torch_autotune.py; service= is ported: its
+# cases (kw0, kw2, kw3) became combinations with devices=, the one
+# option that still raises, and service= runs in
+# tests/test_torch_service.py
 @pytest.mark.parametrize("kw", [
-    dict(tiling=(8, 8, 8), precision="bf16", variant="auto",
-         service=object()),
+    dict(tiling=(8, 8, 8), precision="bf16", variant="auto", devices=2),
     dict(memory_budget=1 << 20, tuning="cache.json", devices=2),
-    dict(tuning="cache.json", service=object()), dict(service=object()),
+    dict(tuning="cache.json", service=object(), devices=2),
+    dict(service=object(), devices=2),
     dict(devices=2), dict(pipeline="async", devices=2),
     dict(precision="bf16", devices=2), dict(variant="auto", devices=2),
 ])
 def test_unported_options_raise(kw):
     _, t, p, _ = _problem("smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
+                                                  "item 1"):
         repro_torch.reconstruct(p, t, options=ReconOptions(**kw),
                                 device="cpu")
 
@@ -251,7 +255,9 @@ def test_bf16_options_run(kw):
 def test_iterative_methods_raise(method):
     """The iterative methods run through reconstruct and match the JAX
     package at 1e-4 (tests/test_torch_solvers.py); what still raises is
-    what the JAX package refuses (devices=) and the unported service=."""
+    what the JAX package refuses (devices=) and service= with device=
+    (the service owns the device). service= routes the solve through a
+    solver bucket and gives the direct solve's volume bit for bit."""
     g, t, p, _ = _problem("smoke")
     kw = dict(n_iters=3, nb=4, proj_batch=4 if method == "os_sart" else None)
     want = np.asarray(repro.reconstruct(jnp.asarray(p), g, method=method,
@@ -263,29 +269,42 @@ def test_iterative_methods_raise(method):
     with pytest.raises(ValueError, match="devices="):
         repro_torch.reconstruct(p, t, method=method, devices=2,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        repro_torch.reconstruct(p, t, method=method, service=object(),
-                                device="cpu")
+    from repro_torch.runtime.service import ReconService
+    with ReconService(max_inflight=1, device="cpu") as svc:
+        with pytest.raises(ValueError, match="device="):
+            repro_torch.reconstruct(p, t, method=method, service=svc,
+                                    device="cpu")
+        via = repro_torch.reconstruct(
+            p, t, method=method, options=ReconOptions(service=svc, **kw))
+        assert svc.stats().buckets[0].completed == 1
+    assert torch.equal(via, got)
 
 
 def test_unported_variant_and_executor_paths_raise():
+    """What still raises is the fleet (ROADMAP.md queue 1 item 1); the
+    stream and batched plans, ``open_stream`` and ``execute_batch`` run
+    (tests/test_torch_streaming.py, tests/test_torch_batching.py)."""
     from repro_torch.runtime.planner import plan_reconstruction
     _, t, p, _ = _problem("smoke")
     stream = plan_reconstruction(t, "algorithm1_mp", ingest="stream")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PlanExecutor(t, stream, device="cpu")
+    se = PlanExecutor(t, stream, device="cpu").open_stream()
+    se.push(p)
+    assert np.array_equal(
+        se.close(), PlanExecutor(t, stream, device="cpu").reconstruct(p))
     batched = plan_reconstruction(t, "algorithm1_mp",
                                   tile_shape=(8, 8, 8)).batched(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PlanExecutor(t, batched, device="cpu")
+    bex = PlanExecutor(t, batched, device="cpu")
+    for got, want in zip(bex.execute_batch([p, p]),
+                         [bex.reconstruct(p)] * 2):
+        assert np.array_equal(got, want)
     plan = plan_reconstruction(t, "algorithm1_mp", out="device")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
         PlanExecutor(t, plan, fleet=object(), device="cpu")
     ex = PlanExecutor(t, plan, device="cpu")
-    for call in (lambda: ex.open_stream(), lambda: ex.execute_batch([p, p]),
-                 lambda: ex.execute_distributed(None, None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(ValueError, match="chunk-major"):
+        ex.open_stream()
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        ex.execute_distributed(None, None, None)
     with pytest.raises(ValueError, match="full scan"):
         ex.reconstruct(p[:-1])
     with pytest.raises(TypeError):
