@@ -96,6 +96,19 @@ built after warm-up, batches, occupancy and p50/p99 per bucket printed,
 and ``reconstruct(service=svc)`` routed. Their lane launches join each
 kernel's row as ``launches_batch``.
 
+The reconstruction fleet (phase ``[fleet]``, after ``[service]``): at P5
+on the tiled host walk (``tiling=(256, 256, 96)``, 12 steps x 4 chunks),
+for ``subline_pl``, ``onehot_pl`` and ``banded_pl`` at nb = 8, fleets of
+``("cuda:0",)`` and ``("cuda:0",) * 2``, failover (entry 1 faults and is
+retired with 0 steps) and a straggler (entry 0 sleeps, its steps are
+stolen), each equal to the single-device step-major host walk bit for
+bit with one launch per step and chunk; a poison step aborts; a
+``ReconService(devices=("cuda:0",) * 2)`` serves two requests, each equal
+to its solo walk; a fleet of two at nb = 1 (K1, K3, K5). The fleets' host
+walls print beside the step host walls of ``[tiled]``; the checked runs'
+launches join each kernel's row as ``launches_fleet``. One card shows the
+fleet's correctness and its threads' cost, not scaling across cards.
+
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
@@ -2684,6 +2697,200 @@ def phase_service(seed: int, plain) -> dict:
     return total
 
 
+# the fleet's P5 walk: TILED_P5 with a host volume, step-major (12 steps x
+# 4 chunks); entry 0 of the straggler run sleeps this long before each step
+FLEET_STRAGGLE_S = 0.5
+NONFUSED = {"subline_pl": "backproject_subline_kernel",
+            "onehot_pl": "backproject_onehot_kernel",
+            "banded_pl": "backproject_banded_kernel"}
+
+
+def _fleet_walk(label, geom, plan, p, cfg, kernel, plain, want):
+    """One checked fleet run: the volume equals ``want`` (the single-device
+    step-major host walk) bit for bit, with one launch of ``kernel`` per
+    step and chunk, no other kernel and no plain version. Returns the
+    executor (its ``last_fleet_report``) and the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.executor import PlanExecutor
+    ex = PlanExecutor(geom, plan, fleet=cfg)
+    ex.warm()
+    torch.cuda.synchronize()
+    reset_launches()
+    plain.calls = 0
+    vol = ex.reconstruct(p)
+    n = launches()
+    want_n = len(plan.steps) * len(plan.chunks)
+    require(n[kernel] == want_n and sum(n.values()) == want_n,
+            f"{label}: launches {n}, want {want_n} of {kernel}")
+    require(plain.calls == 0, f"{label}: a plain version ran")
+    require(np.array_equal(vol, want), f"{label} is not bitwise equal to "
+            f"the single-device step-major host walk")
+    rep = ex.last_fleet_report
+    require(sum(rep.steps_by_device) == len(plan.steps),
+            f"{label}: steps by entry {rep.steps_by_device}")
+    return ex, n[kernel]
+
+
+def phase_fleet(seed: int, plain, walls) -> dict:
+    """The reconstruction fleet at P5 on the tiled host walk (TILED_P5, 12
+    steps x 4 chunks of 128 views), for each CUDA variant at nb = 8: fleets
+    of ("cuda:0",) and ("cuda:0",) * 2, failover (entry 1 faults and is
+    retired with 0 steps), a straggler (entry 0 sleeps, steps are stolen)
+    each equal to the single-device step-major host walk bit for bit; a
+    poison step aborts; ``ReconService(devices=("cuda:0",) * 2)`` serves
+    two requests, and ``execute_batch`` runs them as rb = 2 lane steps on
+    that fleet, each its solo walk bit for bit; and at nb = 1 a fleet of
+    two (K1, K3, K5). Prints the fleets' host walls beside the step host
+    walls of [tiled]. One card shows the fleet's correctness and what its
+    threads cost, not scaling across cards. Returns the checked runs'
+    launches by kernel row (lane launches in their kernel's row)."""
+    import concurrent.futures
+    import numpy as np
+    import torch
+    from repro_torch.configs.ct_paper import get_problem
+    from repro_torch.core.fdk import _build_plan
+    from repro_torch.runtime.executor import FleetConfig, PlanExecutor
+    from repro_torch.runtime.service import ReconService
+    t_phase = time.perf_counter()
+    card = card_line()
+    geom = get_problem("P5").geometry()
+    rng = np.random.default_rng(seed + 17)
+    p, p2 = (torch.from_numpy(rng.random(geom.proj_shape_hw,
+                                         dtype=np.float32)).cuda()
+             for _ in range(2))
+    one, two = ("cuda:0",), ("cuda:0",) * 2
+    total = {name: 0 for name in KERNELS}
+
+    def plan_of(variant, nb):
+        return _build_plan(geom, variant, nb=nb, interpret=True,
+                           tiling=TILED_P5["tiling"], memory_budget=None,
+                           proj_batch=TILED_P5["proj_batch"], out="host",
+                           schedule="step")
+
+    def fail_entry1(entry, step):
+        if entry == 1:
+            raise RuntimeError("injected device fault")
+
+    def straggle_entry0(entry, step):
+        if entry == 0:
+            time.sleep(FLEET_STRAGGLE_S)
+
+    def poison_step0(entry, step):
+        if step == 0:
+            raise RuntimeError("injected poison step")
+
+    for variant, kernel in FUSED.items():
+        plan = plan_of(variant, 8)
+        require(len(plan.steps) == TILED_P5_STEPS and len(plan.chunks) == 4,
+                f"P5 fleet plan: {len(plan.steps)} steps x "
+                f"{len(plan.chunks)} chunks")
+        single = PlanExecutor(geom, plan).reconstruct(p)
+        label = f"P5 {variant} fleet"
+        fwalls, reps = {}, {}
+        for name, cfg in (("of 1", FleetConfig(devices=one)),
+                          ("of 2", FleetConfig(devices=two)),
+                          ("failover", FleetConfig(devices=two,
+                                                   step_hook=fail_entry1)),
+                          ("straggler", FleetConfig(
+                              devices=two, step_hook=straggle_entry0))):
+            ex, n = _fleet_walk(f"{label} {name}", geom, plan, p, cfg,
+                                kernel, plain, single)
+            total[kernel] += n
+            reps[name] = rep = ex.last_fleet_report
+            if name in ("of 1", "of 2"):
+                runs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    ex.reconstruct(p)
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                fwalls[name] = statistics.median(runs)
+        fo, st = reps["failover"], reps["straggler"]
+        require(fo.dead_devices == (1,) and fo.steps_by_device[1] == 0
+                and fo.retried >= 1, f"{label} failover: {fo}")
+        require(st.stolen >= 1, f"{label} straggler: nothing stolen: {st}")
+        ex = PlanExecutor(geom, plan, fleet=FleetConfig(
+            devices=two, step_hook=poison_step0))
+        ex.warm()
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            err = pool.submit(ex.reconstruct, p).exception()
+        require(isinstance(err, RuntimeError)
+                and "max_retries_per_step" in str(err)
+                and "injected poison step" in str(err.__cause__),
+                f"{label} poison step did not abort: {err!r}")
+        print(f"[fleet] {label} (256, 256, 96) host, {len(plan.steps)} "
+              f"steps x {len(plan.chunks)} chunks: of 1 {fwalls['of 1']:.3f} ms, of 2 {fwalls['of 2']:.3f} ms "
+              f"(host clock, median of 3 after the checked run); step host "
+              f"sync {walls[(variant, 'step', 'host', 'sync')]:.3f} ms, "
+              f"async {walls[(variant, 'step', 'host', 'async')]:.3f} ms "
+              f"([tiled], CUDA events); each bitwise equal to the single "
+              f"walk; steps by entry: of 2 {reps['of 2'].steps_by_device}, "
+              f"failover {fo.steps_by_device} (retired {fo.dead_devices}, "
+              f"{fo.retried} re-run), straggler {st.steps_by_device} "
+              f"({st.stolen} stolen, flagged {st.flagged_devices}); poison "
+              f"step aborted; {card}")
+        solo2 = PlanExecutor(geom, plan).reconstruct(p2)
+        with ReconService(max_inflight=2, devices=two) as svc:
+            opts = dict(variant=variant, tiling=TILED_P5["tiling"],
+                        proj_batch=TILED_P5["proj_batch"])
+            svc.warmup([geom], **opts)
+            torch.cuda.synchronize()
+            reset_launches()
+            plain.calls = 0
+            futs = [svc.submit(x, geom, **opts) for x in (p, p2)]
+            outs = [f.result() for f in futs]
+            n = launches()
+            row = svc.stats().buckets[0]
+        want_n = 2 * len(plan.steps) * len(plan.chunks)
+        require(n[kernel] == want_n and sum(n.values()) == want_n
+                and plain.calls == 0,
+                f"{label} service: launches {n}, want {want_n} of {kernel}")
+        require(np.array_equal(outs[0], single)
+                and np.array_equal(outs[1], solo2),
+                f"{label} service: a request differs from its solo walk")
+        require(row.devices == 2 and row.completed == 2,
+                f"{label} service bucket: {row}")
+        total[kernel] += n[kernel]
+        print(f"[fleet] {label} service (devices=('cuda:0',) * 2): 2 "
+              f"requests, each bitwise equal to its solo walk; bucket "
+              f"devices {row.devices}, steals {row.steals}, failovers "
+              f"{row.failovers}")
+        # the batched fleet: one rb = 2 lane launch a step and chunk
+        ex = PlanExecutor(geom, plan, fleet=FleetConfig(devices=two))
+        ex.warm_batch(2)
+        torch.cuda.synchronize()
+        reset_launches()
+        plain.calls = 0
+        outs = ex.execute_batch([p, p2])
+        n = launches()
+        want_n = len(plan.steps) * len(plan.chunks)
+        require(n[LANES[kernel]] == want_n and sum(n.values()) == want_n
+                and plain.calls == 0,
+                f"{label} batch: launches {n}, want {want_n} of "
+                f"{LANES[kernel]}")
+        require(np.array_equal(outs[0], single)
+                and np.array_equal(outs[1], solo2),
+                f"{label} batch: a lane differs from its solo walk")
+        total[kernel] += n[LANES[kernel]]
+        print(f"[fleet] {label} execute_batch of 2 on ('cuda:0',) * 2: "
+              f"each lane bitwise equal to its solo walk, {want_n} launches "
+              f"of {LANES[kernel]}, steps by entry "
+              f"{ex.last_fleet_report.steps_by_device}")
+        del single, solo2, outs
+        nb1 = plan_of(variant, 1)
+        single = PlanExecutor(geom, nb1).reconstruct(p)
+        ex, n = _fleet_walk(f"{label} nb=1 of 2", geom, nb1, p,
+                            FleetConfig(devices=two), NONFUSED[variant],
+                            plain, single)
+        total[NONFUSED[variant]] += n
+        print(f"[fleet] {label} nb=1 of 2: bitwise equal to the single "
+              f"walk, {n} launches of {NONFUSED[variant]}")
+        del single
+    print(f"[fleet] launches of the checked runs: {total}")
+    print(f"[fleet] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2724,10 +2931,13 @@ def main(argv=None) -> int:
     batch, lane_ms = phase_batch(args.seed, errs, plain)
     stream = phase_stream(args.seed, plain)
     service = phase_service(args.seed, plain)
+    # the fleet: its checked runs' launches join each row as launches_fleet
+    fleet = phase_fleet(args.seed, plain, walls)
     for name, row in rows.items():
         row["launches_batch"] = (batch.get(name, 0) + stream.get(name, 0)
                                  + service.get(name, 0))
         row["lane_ms"] = lane_ms.get(name)
+        row["launches_fleet"] = fleet.get(name, 0)
         if name in errs:
             row["max_abs_err"] = max(row["max_abs_err"], errs[name])
     # last: after P10's host walks the profiler recorded no device time at

@@ -95,18 +95,27 @@ def fdk_reconstruct(projections, geom: CTGeometry,
     routes the call through the service's shape buckets and its FIFO
     queue: the bucket's executor and programs are reused, and the result
     is the service's for the same options. The service owns the flush
-    discipline and the device, so ``pipeline=`` and ``device=`` may not
-    be passed with it. ``devices`` (the JAX package's fleet) raises
-    ``NotImplementedError``: it waits in ROADMAP.md.
-    """
-    from repro_torch.runtime.executor import PlanExecutor
+    discipline and the devices, so ``pipeline=``, ``device=`` and
+    ``devices=`` may not be passed with it.
 
-    if devices is not None:
-        raise NotImplementedError(
-            "devices= is not ported to repro_torch yet (ROADMAP.md queue 1 "
-            "item 1)")
+    ``devices`` shards the step schedule across a reconstruction fleet
+    (``PlanExecutor.execute_fleet``): ``"all"`` uses every CUDA device, an
+    int N the first N, a sequence of devices (or a
+    ``runtime.executor.FleetConfig``) exactly those entries, one worker
+    each (``("cuda:0",) * 2``, or ``("cpu",) * 8`` on the CPU). Steps run
+    with straggler-aware work stealing and per-step failover, and the
+    output equals the single-device walk bit for bit (disjoint step
+    boxes). ``out`` defaults to "host" (the fleet accumulates on the host)
+    and ``schedule`` to "step". Filtering runs on ``device``, by default
+    the fleet's first entry. Without a card, ``"all"`` and an int raise.
+    A fleet's entries and ``device`` are all CUDA devices or all the CPU:
+    a card's failed step never re-runs on the CPU.
+    """
+    from repro_torch.runtime.executor import PlanExecutor, as_fleet_config
+
     if service is not None:
-        for name, value in (("pipeline", pipeline), ("device", device)):
+        for name, value in (("pipeline", pipeline), ("device", device),
+                            ("devices", devices)):
             if value is not None:
                 raise ValueError(
                     f"{name}= is owned by the service's bucket executors "
@@ -117,6 +126,15 @@ def fdk_reconstruct(projections, geom: CTGeometry,
             tiling=tiling, memory_budget=memory_budget,
             proj_batch=proj_batch, out=out, schedule=schedule,
             precision=precision, tuning=tuning, **kernel_options)
+    fleet = as_fleet_config(devices)
+    if fleet is not None:
+        # the fleet accumulates each entry's step outputs into a host
+        # volume over the step schedule; explicit contrary choices fail in
+        # the executor's validation
+        out = out or "host"
+        schedule = schedule or "step"
+        if device is None:
+            device = fleet.resolve_devices()[0]
     if variant == "auto" or tuning is not None:
         # lookup-only tuned resolution: the config also carries the
         # executor-level pipeline knobs the plan cannot
@@ -126,12 +144,14 @@ def fdk_reconstruct(projections, geom: CTGeometry,
             interpret=interpret, tiling=tiling, memory_budget=memory_budget,
             proj_batch=proj_batch, out=out, schedule=schedule,
             precision=precision, **kernel_options)
-        if pipeline is None:
+        if pipeline is None and fleet is None:
             ex = PlanExecutor.from_config(geom, cfg, device=device)
         else:                         # an explicit override beats the cache
-            ex = PlanExecutor(geom, cfg.build_plan(geom), pipeline=pipeline,
+            ex = PlanExecutor(geom, cfg.build_plan(geom),
+                              pipeline=cfg.pipeline if pipeline is None
+                              else pipeline,
                               pipeline_depth=cfg.pipeline_depth, tuned=cfg,
-                              device=device)
+                              fleet=fleet, device=device)
         return ex.reconstruct(projections)
     plan = _build_plan(geom, variant, nb=nb, interpret=interpret,
                        tiling=tiling, memory_budget=memory_budget,
@@ -139,7 +159,7 @@ def fdk_reconstruct(projections, geom: CTGeometry,
                        precision=precision, **kernel_options)
     return PlanExecutor(
         geom, plan, pipeline="sync" if pipeline is None else pipeline,
-        device=device,
+        fleet=fleet, device=device,
     ).reconstruct(projections)
 
 

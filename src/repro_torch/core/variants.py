@@ -173,6 +173,9 @@ class KernelSpec:
         only widens the measured search.
     lanes_fn : the kernel's rb-lane form (one launch for all lanes), or
         None: :attr:`lanes` then runs ``fn`` once per lane.
+    load_fn : builds (at first use) and loads the kernel's library, for a
+        caller that must not build inside worker threads (the fleet
+        builds before its workers start); None for plain variants.
     """
 
     name: str
@@ -184,6 +187,7 @@ class KernelSpec:
     proj_loop: bool = False
     tuning_space: Tuple[Tuple[str, Tuple], ...] = ()
     lanes_fn: Optional[Callable] = None
+    load_fn: Optional[Callable] = None
 
     @property
     def lanes(self) -> Callable:
@@ -208,6 +212,13 @@ class KernelSpec:
         """Filter caller options down to the ones this kernel accepts."""
         return {k: v for k, v in opts.items()
                 if k in self.options and v is not None}
+
+
+def _load_tile_kernel() -> None:
+    """Build and load ``backproject_subline.cu``, the library of every
+    CUDA variant (K1-K6), with the banded launch's bindings."""
+    from repro_torch.kernels import backproject_banded as kb
+    kb._lib()
 
 
 _PL_OPTS = frozenset({"nb", "interpret", "block", "proj_loop"})
@@ -238,14 +249,14 @@ REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
                options=_PL_OPTS,
                slab_safe_fallback="subline_batch_mp", backend="cuda",
                proj_loop=True, tuning_space=_PL_TUNING,
-               lanes_fn=_subline_cuda_lanes),
+               lanes_fn=_subline_cuda_lanes, load_fn=_load_tile_kernel),
     KernelSpec("onehot_pl", _onehot_cuda,
                ("transpose", "share", "symmetry", "subline", "batch",
                 "localmem", "prefetch", "mxu-interp"),
                options=_PL_OPTS | {"k_chunk"},
                slab_safe_fallback="subline_batch_mp", backend="cuda",
                proj_loop=True, tuning_space=_PL_TUNING,
-               lanes_fn=_onehot_cuda_lanes),
+               lanes_fn=_onehot_cuda_lanes, load_fn=_load_tile_kernel),
     # the band schedule is recomputed from the matrices on every call,
     # as in the reference
     KernelSpec("banded_pl", _banded_cuda,
@@ -254,7 +265,7 @@ REGISTRY: Dict[str, KernelSpec] = {s.name: s for s in (
                options=_PL_OPTS | {"bw"},
                slab_safe_fallback="subline_batch_mp", backend="cuda",
                proj_loop=True, tuning_space=_PL_TUNING,
-               lanes_fn=_banded_cuda_lanes),
+               lanes_fn=_banded_cuda_lanes, load_fn=_load_tile_kernel),
 )}
 
 #: variants of the JAX package that this package does not carry yet
@@ -299,11 +310,19 @@ def _validate_registry() -> None:
 _validate_registry()
 
 
+#: the registry's kernel callables by name (the JAX package's lookup view)
+VARIANTS: Dict[str, Callable] = {n: s.fn for n, s in REGISTRY.items()}
+
+
 def get_spec(name: str) -> KernelSpec:
     if name not in REGISTRY:
         raise KeyError(f"unknown back-projection variant {name!r}; "
                        f"have {sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def get_variant(name: str) -> Callable:
+    return get_spec(name).fn
 
 
 def slab_safe_variant(name: str) -> str:

@@ -48,7 +48,8 @@ from repro_torch.core.geometry import CTGeometry
 from repro_torch.core.tiling import (TileSpec, make_tiles, plan_z_slabs,
                                      plan_z_units)
 from repro_torch.core.variants import get_spec
-from repro_torch.runtime.executor import PlanExecutor, ProgramCache
+from repro_torch.runtime.executor import (PlanExecutor, ProgramCache,
+                                          _unported)
 from repro_torch.runtime.planner import ReconPlan, plan_reconstruction
 
 
@@ -158,6 +159,4 @@ class TiledReconstructor:
         return self._executor.reconstruct(projections)
 
     def backproject_distributed(self, img_t, mats, mesh, **_):
-        raise NotImplementedError(
-            "backproject_distributed is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1 item 1)")
+        raise _unported("backproject_distributed", "1c")

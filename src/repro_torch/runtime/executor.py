@@ -48,12 +48,29 @@ matrices, weights, accumulators and the output stay float32
 ``runtime.solvers.IterativeExecutor``. Telemetry spans (``compile``,
 ``filter.chunk``, ``step.dispatch`` with its roofline args, ``flush`` on
 the flusher thread, ``stream.fold`` and ``stream.tail``) ride every walk
-(``runtime.telemetry``). The multi-device fleet waits in ROADMAP.md and
-raises ``NotImplementedError`` here.
+(``runtime.telemetry``).
+
+  * The reconstruction fleet: :meth:`PlanExecutor.execute_fleet` (an
+    executor built with ``fleet=``, a :class:`FleetConfig`) spreads the
+    step-major walk over a tuple of torch devices, one dispatcher thread
+    per entry (an entry may repeat: ``("cuda:0",) * 2`` runs two workers
+    on one card, ``("cpu",) * 8`` eight on the CPU). Steps start on LPT
+    queues (``runtime.planner.partition_steps``); an idle worker steals,
+    stragglers first (``runtime.straggler.FleetStragglerBoard``), and a
+    failed step re-runs elsewhere under a per-step retry budget. Each
+    step runs the origin-taking step program
+    (:meth:`ProgramCache.fleet_program`), which folds the origin exactly
+    as the single-device walk does, and writes a disjoint box of the
+    host volume, so the fleet's volume equals the single-device walk's
+    bit for bit. ``fleet.steal``, ``fleet.failover`` and ``fleet.retire``
+    instants mark what the fleet did; each worker is its own thread lane
+    (``recon-fleet-{d}``).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -76,8 +93,9 @@ from repro_torch.core.variants import get_spec
 from repro_torch.runtime import telemetry
 from repro_torch.runtime.planner import (
     PlanStep, ReconPlan, StepMajorSchedule, build_step_major,
-    resolve_tile_variant, step_cost,
+    partition_steps, resolve_tile_variant, step_cost,
 )
+from repro_torch.runtime.straggler import FleetStragglerBoard
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -128,6 +146,51 @@ def _with_precision(fn, dtype: str):
         return fn(cast(img), mat, shape, **opts)
 
     return wrapped
+
+
+def _step_program(variant: str, call_shape: Tuple[int, int, int], nb: int,
+                  dtype: str, interpret: bool, options: Tuple,
+                  n_chunks: int, rb: Optional[int] = None) -> Callable:
+    """The step-major program: ``prog(img_s, mat_s) -> vol_t(call_shape)``
+    over the STACKED chunk axes ``(n_chunks, chunk_size, ...)``, one kernel
+    launch per chunk summed in chunk order in place (the accumulator is
+    the first chunk's output buffer). ``rb`` lanes: ``prog(img_b, mat_s)
+    -> vol_b((rb,) + call_shape)`` with ``img_b`` ``(rb, n_chunks,
+    chunk_size, ...)`` and ONE lane launch per chunk (``KernelSpec.
+    lanes``), each lane's sum in the same order as the solo program."""
+    spec = get_spec(variant)
+    opts = spec.resolve_options(
+        {**dict(options), "nb": int(nb), "interpret": bool(interpret)})
+    shape = tuple(call_shape)
+    if rb is None:
+        fn = _with_precision(spec.fn, dtype)
+
+        def prog(img_s, mat_s):
+            acc = fn(img_s[0], mat_s[0], shape, **opts)
+            for c in range(1, int(n_chunks)):
+                acc += fn(img_s[c], mat_s[c], shape, **opts)
+            return acc
+        return prog
+    lanes = _with_precision(spec.lanes, dtype)
+
+    def prog_lanes(img_b, mat_s):
+        acc = lanes(img_b[:, 0], mat_s[0], shape, **opts)
+        for c in range(1, int(n_chunks)):
+            acc += lanes(img_b[:, c], mat_s[c], shape, **opts)
+        return acc
+    return prog_lanes
+
+
+def fold_origin(mats: torch.Tensor, origin) -> torch.Tensor:
+    """``mats`` with a step's voxel origin ``(i0, j0, k_off)`` folded into
+    the constant column (``core.tiling.translate_matrices``); the origin
+    ``(0, 0, 0)`` returns ``mats`` itself. The single-device walk and the
+    fleet's step program both fold through here, on the device that runs
+    the step, so a step's matrices carry the same bits on either path."""
+    i0, j0, k_off = origin
+    if (i0, j0, k_off) == (0, 0, 0):
+        return mats
+    return translate_matrices(mats, float(i0), float(j0), float(k_off))
 
 
 class ProgramCache:
@@ -215,22 +278,8 @@ class ProgramCache:
         key = ("scan", variant, tuple(call_shape), int(nb), str(dtype),
                bool(interpret), tuple(options), int(n_chunks),
                int(chunk_size))
-
-        def build():
-            spec = get_spec(variant)
-            opts = spec.resolve_options(
-                {**dict(options), "nb": int(nb), "interpret": bool(interpret)})
-            shape = tuple(call_shape)
-            fn = _with_precision(spec.fn, dtype)
-
-            def prog(img_s, mat_s):
-                acc = fn(img_s[0], mat_s[0], shape, **opts)
-                for c in range(1, int(n_chunks)):
-                    acc += fn(img_s[c], mat_s[c], shape, **opts)
-                return acc
-            return prog
-
-        return self.get_or_build(key, build)
+        return self.get_or_build(key, lambda: _step_program(
+            variant, call_shape, nb, dtype, interpret, options, n_chunks))
 
     def batch_scan_program(self, variant: str,
                            call_shape: Tuple[int, int, int],
@@ -248,26 +297,56 @@ class ProgramCache:
         key = ("batch_scan", variant, tuple(call_shape), int(nb),
                str(dtype), bool(interpret), tuple(options), int(n_chunks),
                int(chunk_size), int(rb))
+        return self.get_or_build(key, lambda: _step_program(
+            variant, call_shape, nb, dtype, interpret, options, n_chunks,
+            rb=int(rb)))
+
+    def fleet_program(self, variant: str, call_shape: Tuple[int, int, int],
+                      nb: int, dtype: str, interpret: bool,
+                      options: Tuple = (), *, n_chunks: int,
+                      chunk_size: int) -> Callable:
+        """Fleet step program: ``prog(img_s, mat_s, origin) ->
+        vol_t(call_shape)``: :meth:`scan_program` with the step origin
+        ``(i0, j0, k_off)`` as a call-time argument
+        (``core.distributed.make_fleet_bp``), so one key serves every
+        same-shape step on every device: work stealing and failover never
+        add a key."""
+        key = ("fleet", variant, tuple(call_shape), int(nb), str(dtype),
+               bool(interpret), tuple(options), int(n_chunks),
+               int(chunk_size))
 
         def build():
-            spec = get_spec(variant)
-            opts = spec.resolve_options(
-                {**dict(options), "nb": int(nb), "interpret": bool(interpret)})
-            shape = tuple(call_shape)
-            lanes = _with_precision(spec.lanes, dtype)
-
-            def prog(img_b, mat_s):
-                acc = lanes(img_b[:, 0], mat_s[0], shape, **opts)
-                for c in range(1, int(n_chunks)):
-                    acc += lanes(img_b[:, c], mat_s[c], shape, **opts)
-                return acc
-            return prog
+            from repro_torch.core.distributed import make_fleet_bp
+            return make_fleet_bp(
+                variant, tuple(call_shape), nb=int(nb),
+                n_chunks=int(n_chunks), chunk_size=int(chunk_size),
+                options=tuple(options), interpret=bool(interpret))
 
         return self.get_or_build(key, build)
 
-    def batch_fleet_program(self, *args, **kwargs) -> Callable:
-        """The fleet's rb-lane step program of the JAX package."""
-        raise _unported("batch_fleet_program (fleet execution)", "1")
+    def batch_fleet_program(self, variant: str,
+                            call_shape: Tuple[int, int, int],
+                            nb: int, dtype: str, interpret: bool,
+                            options: Tuple = (), *, n_chunks: int,
+                            chunk_size: int, rb: int) -> Callable:
+        """rb-lane fleet step program: ``prog(img_b, mat_s, origin) ->
+        vol_b((rb,) + call_shape)``: :meth:`fleet_program`'s origin
+        argument over :meth:`batch_scan_program`'s lanes, so a fleet runs
+        k batched requests' steps with one lane launch per (entry, step,
+        chunk), and stealing and failover still build nothing."""
+        key = ("batch_fleet", variant, tuple(call_shape), int(nb),
+               str(dtype), bool(interpret), tuple(options), int(n_chunks),
+               int(chunk_size), int(rb))
+
+        def build():
+            from repro_torch.core.distributed import make_fleet_bp
+            return make_fleet_bp(
+                variant, tuple(call_shape), nb=int(nb),
+                n_chunks=int(n_chunks), chunk_size=int(chunk_size),
+                options=tuple(options), interpret=bool(interpret),
+                rb=int(rb))
+
+        return self.get_or_build(key, build)
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
@@ -496,6 +575,210 @@ class _FilteredChunkProducer:
 
 
 # --------------------------------------------------------------------------
+# Fleet execution: the step schedule over several devices
+# --------------------------------------------------------------------------
+
+def _fleet_device(dev) -> torch.device:
+    """One fleet entry as a torch device with its index (``"cuda"`` is the
+    current card); a CUDA entry raises without a card, as
+    ``resolve_device`` does, and past the last card."""
+    d = resolve_device(dev)
+    if d.type == "cuda":
+        count = torch.cuda.device_count()
+        d = torch.device("cuda", torch.cuda.current_device()
+                         if d.index is None else d.index)
+        if d.index >= count:
+            raise ValueError(f"fleet entry {d} but {count} CUDA devices "
+                             f"are available")
+    return d
+
+
+def _one_device_type(devs: Tuple[torch.device, ...],
+                     device: Optional[torch.device] = None
+                     ) -> Tuple[torch.device, ...]:
+    """Refuse a fleet whose entries are not all of one device type, or not
+    of the type of ``device`` (where the inputs are filtered): a failed
+    card step could otherwise re-run on a CPU entry, through the plain
+    version. Returns ``devs``."""
+    types = {d.type for d in devs}
+    if device is not None:
+        types.add(device.type)
+    if len(types) > 1:
+        raise ValueError(
+            f"a fleet runs on one device type: entries {list(map(str, devs))}"
+            + (f" with inputs filtered on {device}" if device is not None
+               else "")
+            + "; name only CUDA devices or only the CPU")
+    return devs
+
+
+def _cuda_fleet(n: Optional[int] = None) -> Tuple[torch.device, ...]:
+    """The first ``n`` CUDA devices (all of them for None); raises without
+    a card: a fleet never runs on the CPU unless the caller names it."""
+    resolve_device("cuda")
+    count = torch.cuda.device_count()
+    n = count if n is None else int(n)
+    if not 1 <= n <= count:
+        raise ValueError(
+            f"devices={n} but {count} CUDA devices are available")
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """How a :class:`PlanExecutor` spreads a step-major plan across
+    devices (``execute_fleet``).
+
+    devices : the fleet's entries, torch devices or their names; one
+        worker thread runs per entry, and an entry may repeat
+        (``("cuda:0",) * 2`` is two workers on one card, ``("cpu",) * 8``
+        eight on the CPU). ``None`` resolves to every CUDA device at run
+        time and raises without a card. The entries are all CUDA devices
+        or all the CPU: a mix raises, so a card's failed step never
+        re-runs on the CPU through the plain version.
+    max_retries_per_step : failover budget PER STEP INDEX — the
+        :class:`~repro_torch.runtime.fault_tolerance.FaultTolerantLoop`
+        retry contract: counted per index, never reset by successes
+        elsewhere. A step that fails more than this many times across the
+        whole fleet aborts the run (a poison step; skipping it would leave
+        a hole in the volume, unlike a training batch).
+    device_strikes : step failures charged to one entry before it is
+        RETIRED: its worker exits, its unclaimed queue is drained by the
+        surviving entries through the normal stealing path, and its
+        already-failed steps re-run elsewhere (disjoint output boxes, so
+        re-running a step is idempotent).
+    straggler_window / straggler_ratio : the
+        :class:`~repro_torch.runtime.straggler.FleetStragglerBoard` knobs:
+        an entry whose recent median step time exceeds ``ratio`` x the
+        fleet median is flagged, and idle entries steal from flagged
+        queues first.
+    step_hook : test seam called as ``hook(entry_index, step_index)``
+        before a step's program runs: raise to inject a device fault,
+        sleep to simulate a straggler. ``None`` in production.
+    """
+
+    devices: Optional[Tuple] = None
+    max_retries_per_step: int = 2
+    device_strikes: int = 2
+    straggler_window: int = 32
+    straggler_ratio: float = 1.5
+    step_hook: Optional[Callable[[int, int], None]] = None
+
+    def resolve_devices(self) -> Tuple[torch.device, ...]:
+        """The entries as torch devices; raises where they mix device
+        types (``_one_device_type``) or ask for a card there is not."""
+        return (_one_device_type(tuple(_fleet_device(d)
+                                       for d in self.devices))
+                if self.devices else _cuda_fleet())
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetReport(telemetry.EmitMixin):
+    """What one ``execute_fleet`` run did: per-entry completion counts,
+    how many steps migrated (``stolen``), how many re-ran after a failure
+    (``retried``), which entries were retired (``dead_devices``) and which
+    the straggler board flagged (``flagged_devices``). ``as_dict()`` /
+    ``emit()`` follow the shared :class:`~repro_torch.runtime.telemetry.
+    EmitMixin` report contract."""
+
+    n_devices: int
+    n_steps: int
+    steps_by_device: Tuple[int, ...]
+    stolen: int
+    retried: int
+    dead_devices: Tuple[int, ...]
+    flagged_devices: Tuple[int, ...]
+
+
+def as_fleet_config(devices, *, max_retries_per_step: int = 2,
+                    step_hook=None) -> Optional[FleetConfig]:
+    """Normalize an entry point's ``devices=`` argument.
+
+    ``None`` -> no fleet (single-device walks); ``"all"`` -> every CUDA
+    device, resolved at run time; an ``int`` N -> the first N CUDA devices
+    (resolved now); a sequence of devices (or their names) -> exactly
+    those entries; an existing :class:`FleetConfig` passes through.
+    Without a card, ``"all"`` and an int raise (``resolve_device``'s
+    error): there is no silent CPU fleet.
+    """
+    if devices is None:
+        return None
+    if isinstance(devices, FleetConfig):
+        return devices
+    if isinstance(devices, str) and devices == "all":
+        devs = None
+    elif isinstance(devices, int) and not isinstance(devices, bool):
+        devs = _cuda_fleet(devices)
+    elif isinstance(devices, (str, torch.device)):
+        raise ValueError(
+            f"devices= takes 'all', an int or a sequence of devices, got "
+            f"{devices!r}; for one entry pass ({devices!r},)")
+    else:
+        devs = _one_device_type(tuple(_fleet_device(d) for d in devices))
+        if not devs:
+            raise ValueError("devices sequence must be non-empty")
+    return FleetConfig(devices=devs,
+                       max_retries_per_step=max_retries_per_step,
+                       step_hook=step_hook)
+
+
+class _Replicas:
+    """The filtered chunk grid on each distinct device of a fleet.
+
+    The grid lies where it was filtered (the executor's device); another
+    device gets its copy once, lazily, under a lock, the first time one of
+    its workers takes a step: a repeated entry shares its device's copy,
+    and a spare that never takes work pays none. On a card, the stream of
+    the worker that asks waits for the grid: for the stream that filled
+    it (an event recorded before any worker started) or for the copy."""
+
+    def __init__(self, img_s: torch.Tensor, mat_s: torch.Tensor):
+        self._lock = threading.Lock()
+        self._grid = (img_s, mat_s)
+        self._filled = self._event(img_s.device)
+        self._by_device = {img_s.device: (img_s, mat_s, self._filled)}
+
+    @staticmethod
+    def _event(dev: torch.device):
+        """An event recorded on ``dev``'s current stream (None off a card)."""
+        if dev.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        return ev
+
+    def get(self, dev: torch.device):
+        """``(img_s, mat_s)`` on ``dev``, ready for the calling worker's
+        current stream."""
+        with self._lock:
+            got = self._by_device.get(dev)
+            if got is None:
+                img_s, mat_s = self._grid
+                if self._filled is not None:
+                    if dev.type == "cuda":
+                        torch.cuda.current_stream(dev).wait_event(
+                            self._filled)
+                    else:
+                        self._filled.synchronize()
+                got = (img_s.to(dev), mat_s.to(dev), self._event(dev))
+                self._by_device[dev] = got
+        img, mat, ready = got
+        if ready is not None:
+            torch.cuda.current_stream(dev).wait_event(ready)
+        return img, mat
+
+
+def _worker_stream(dev: torch.device):
+    """A stream of its own for a fleet worker on a card (so one worker's
+    host copy does not wait for another worker's kernels); on the CPU a
+    no-op. Returns ``(context, stream or None)``."""
+    if dev.type != "cuda":
+        return contextlib.nullcontext(), None
+    stream = torch.cuda.Stream(dev)
+    return torch.cuda.stream(stream), stream
+
+
+# --------------------------------------------------------------------------
 # The executor
 # --------------------------------------------------------------------------
 
@@ -519,6 +802,13 @@ class PlanExecutor:
     The executor can also be built straight from an autotuned winner:
     :meth:`from_config` takes a ``runtime.autotune.TunedConfig`` and
     keeps it as ``.tuned`` (provenance; None = heuristic knobs).
+
+    ``fleet`` (a :class:`FleetConfig`) runs every reconstruction through
+    :meth:`execute_fleet`. The
+    inputs are filtered on ``device``, which under a fleet defaults to the
+    fleet's first entry; the workers take the filtered grid from there.
+    The entries and ``device`` must be of one device type, all CUDA or
+    all CPU (``ValueError`` otherwise).
     """
 
     def __init__(self, geom: CTGeometry, plan: ReconPlan,
@@ -529,8 +819,28 @@ class PlanExecutor:
             raise ValueError(
                 f"pipeline must be 'sync' or 'async', got {pipeline!r}")
         if fleet is not None:
-            raise _unported("fleet execution", "1")
+            if plan.schedule != "step":
+                raise ValueError(
+                    "fleet execution shards the STEP schedule (disjoint "
+                    "output boxes are the shard axis); plan with "
+                    f"schedule='step', got {plan.schedule!r}")
+            if plan.out != "host":
+                raise ValueError(
+                    "fleet execution accumulates each entry's step outputs "
+                    "into a host volume; plan with out='host', got "
+                    f"{plan.out!r}")
+            if plan.precision != "f32":
+                raise ValueError(
+                    "fleet execution does not support the reduced-"
+                    "precision data path (the fleet's step programs are "
+                    "f32-only); plan with precision='f32', got "
+                    f"{plan.precision!r}")
+            entries = fleet.resolve_devices()   # raises without a card
+            if device is None:
+                device = entries[0]
         self.device = resolve_device(device)
+        if fleet is not None:
+            _one_device_type(entries, self.device)
         self.geom = geom
         self.plan = plan
         self._dtype = _plan_dtype(plan)
@@ -538,6 +848,14 @@ class PlanExecutor:
         self.pipeline = pipeline
         self.pipeline_depth = int(pipeline_depth)
         self.tuned = tuned    # TunedConfig provenance, None = heuristic
+        self.fleet = fleet    # FleetConfig, None = single-device walks
+        self.last_fleet_report: Optional[FleetReport] = None
+        self._fleet_lock = threading.Lock()
+        # summed over runs (the service snapshots these: per-run reports
+        # of a bucket executor shared by workers would race)
+        self.fleet_totals: Dict[str, int] = {
+            "runs": 0, "devices": 0, "stolen": 0, "retried": 0,
+            "dead_devices": 0}
 
     @classmethod
     def from_config(cls, geom: CTGeometry, config,
@@ -573,9 +891,41 @@ class PlanExecutor:
             self.plan.interpret, self.plan.options,
             n_chunks=sched.n_chunks, chunk_size=sched.chunk_size, rb=rb)
 
+    def _fleet_programs(self, devices, sched: StepMajorSchedule,
+                        rb: Optional[int] = None) -> Dict[tuple, Callable]:
+        """Every fleet step program the schedule's steps call, by
+        ``(variant, call_shape)``, built before any worker starts; on a
+        fleet with a card, the CUDA variants' kernels are built and loaded
+        here too (``KernelSpec.load_fn``). A build failure thus raises in
+        the caller's thread and is never counted as a step fault."""
+        progs: Dict[tuple, Callable] = {}
+        for work in sched.steps:
+            key = (work.step.variant, tuple(work.step.call_shape))
+            if key not in progs:
+                progs[key] = (
+                    self.cache.fleet_program(
+                        *key, self.plan.nb, self._dtype, self.plan.interpret,
+                        self.plan.options, n_chunks=sched.n_chunks,
+                        chunk_size=sched.chunk_size)
+                    if rb is None else self.cache.batch_fleet_program(
+                        *key, self.plan.nb, self._dtype, self.plan.interpret,
+                        self.plan.options, n_chunks=sched.n_chunks,
+                        chunk_size=sched.chunk_size, rb=rb))
+        if any(d.type == "cuda" for d in devices):
+            for variant in {v for v, _ in progs}:
+                load = get_spec(variant).load_fn
+                if load is not None:
+                    load()
+        return progs
+
     def warm(self) -> Dict[str, int]:
-        """Build every distinct program the plan needs; return stats."""
-        if self.plan.schedule == "step":
+        """Build every distinct program the plan needs; return stats.
+        Under a fleet: the fleet step programs, and the kernels of the
+        fleet's cards."""
+        if self.fleet is not None:
+            self._fleet_programs(self.fleet.resolve_devices(),
+                                 self.plan.step_major)
+        elif self.plan.schedule == "step":
             sched = self.plan.step_major
             for variant, shape in self.plan.program_keys:
                 self._scan_program(variant, shape, sched)
@@ -598,6 +948,9 @@ class PlanExecutor:
         if rb < 2 or not self.supports_request_batching:
             return self.cache.stats()
         sched = self.plan.step_major
+        if self.fleet is not None:
+            self._fleet_programs(self.fleet.resolve_devices(), sched, rb)
+            return self.cache.stats()
         for variant, shape in self.plan.program_keys:
             self._batch_scan_program(variant, shape, sched, rb)
         return self.cache.stats()
@@ -614,10 +967,7 @@ class PlanExecutor:
 
     @staticmethod
     def _translated(mats: torch.Tensor, step: PlanStep) -> torch.Tensor:
-        if (step.i0, step.j0, step.k_off) == (0, 0, 0):
-            return mats
-        return translate_matrices(mats, float(step.i0), float(step.j0),
-                                  float(step.k_off))
+        return fold_origin(mats, (step.i0, step.j0, step.k_off))
 
     def _single_full_call(self) -> bool:
         """One unpaired step covering the whole volume (the untiled plan)."""
@@ -846,8 +1196,10 @@ class PlanExecutor:
         chunks = self._chunks_for(img_p.shape[0])
         if self.plan.schedule == "step":
             sched = self._data_step_major(chunks)
-            return self._walk_steps(*_stack_chunks(img_p, mat_p, sched),
-                                    sched)
+            img_s, mat_s = _stack_chunks(img_p, mat_p, sched)
+            if self.fleet is not None:
+                return self.execute_fleet(self._alloc(), img_s, mat_s, sched)
+            return self._walk_steps(img_s, mat_s, sched)
         return self._walk_chunks(
             lambda c: (img_p[chunks[c][0]:chunks[c][1]],
                        mat_p[chunks[c][0]:chunks[c][1]]), len(chunks))
@@ -917,7 +1269,10 @@ class PlanExecutor:
         producer = _FilteredChunkProducer(self, projections, mat_p)
         if plan.schedule == "step":
             sched = plan.step_major
-            vol = self._walk_steps(*producer.stacked(sched), sched)
+            img_s, mat_s = producer.stacked(sched)
+            vol = (self.execute_fleet(self._alloc(), img_s, mat_s, sched)
+                   if self.fleet is not None
+                   else self._walk_steps(img_s, mat_s, sched))
         else:
             def chunk_inputs(c):
                 inputs = producer.get(c)
@@ -974,6 +1329,10 @@ class PlanExecutor:
         for r, p in enumerate(reqs):
             _, mat_s = _FilteredChunkProducer(self, p, mat_p).stacked(
                 sched, img_b[r])
+        if self.fleet is not None:
+            vols = self.execute_fleet([self._alloc() for _ in range(k)],
+                                      img_b, mat_s, sched)
+            return [np.transpose(v, (2, 1, 0)) for v in vols]
         if self._single_full_call() and plan.out == "device":
             step = plan.steps[0]
             prog = self._batch_scan_program(step.variant, step.call_shape,
@@ -999,10 +1358,243 @@ class PlanExecutor:
         return StreamingExecutor(self, max_pending_chunks=max_pending_chunks,
                                  on_ready=on_ready)
 
+    # ---- the fleet ------------------------------------------------------
+
+    def _fleet_writes(self, step: PlanStep, out: torch.Tensor, vol, vols):
+        """One step's writes as ``(target, slices, host piece)`` triples:
+        into ``vol``, or with ``vols`` (the rb-lane walk) lane r into
+        ``vols[r]``. On a card the pieces are copied into pinned host
+        buffers (PyTorch's caching host allocator reuses them step after
+        step) on the worker's stream, which is then synchronized: that
+        waits for this worker's kernels only."""
+        writes = ([(vol, sl, piece)
+                   for sl, piece in self._step_writes(step, out)]
+                  if vols is None else
+                  [(vols[r], sl, piece) for r in range(len(vols))
+                   for sl, piece in self._step_writes(step, out[r])])
+        if out.device.type != "cuda":
+            return writes
+        staged = []
+        for tgt, sl, piece in writes:
+            host = torch.empty(tuple(piece.shape), dtype=piece.dtype,
+                               pin_memory=True)
+            host.copy_(piece, non_blocking=True)
+            staged.append((tgt, sl, host))
+        torch.cuda.current_stream(out.device).synchronize()
+        return staged
+
+    def execute_fleet(self, vol, img_s: torch.Tensor, mat_s: torch.Tensor,
+                      sched: StepMajorSchedule, *,
+                      fleet: Optional[FleetConfig] = None):
+        """Shard a step-major schedule across a fleet of devices.
+
+        The steps start on per-entry queues (``runtime.planner.
+        partition_steps``: LPT-balanced on modeled voxel work). One
+        dispatcher thread per entry (``recon-fleet-{d}``) enters the
+        entry's device and, on a card, a stream of its own, and drains its
+        queue through the origin-taking step program
+        (:meth:`ProgramCache.fleet_program`, built with every kernel
+        before the threads start). The filtered chunk grid is copied once
+        to each distinct device that takes work (:class:`_Replicas`). Each
+        step's output crosses to the host and lands in its disjoint boxes
+        of the zeroed host volume under one lock, so the order in which
+        steps complete changes nothing: the result equals the
+        single-device step-major walk bit for bit.
+
+        **Work stealing**: an idle entry first drains the fleet retry
+        queue, then steals from the tail of another entry's queue,
+        preferring entries the :class:`FleetStragglerBoard` has flagged as
+        slow, then the longest backlog.
+
+        **Failover**: a failed step is requeued fleet-wide and re-run by
+        whichever entry takes it, with the same kernel on a device the
+        caller named (never on the CPU, never through a plain version):
+        the step's writes were never flushed, so re-running it is
+        idempotent. Failures are budgeted PER STEP INDEX
+        (``max_retries_per_step``, the FaultTolerantLoop contract); past
+        it the run raises a ``RuntimeError`` chained to the step's error
+        (a poison step would leave a hole in the volume). An entry that
+        reaches ``device_strikes`` failures is retired and its queue
+        drains to the survivors; losing every entry raises. A sticky CUDA
+        error (an illegal address) poisons the card's context: every retry
+        on that card fails too, and the run ends as a poison step with
+        the CUDA error chained. Nothing tries to recover from that.
+
+        ``vol`` may be a LIST of rb host volumes (the batched path):
+        ``img_s`` then carries a leading request axis, each step is one
+        rb-lane program (:meth:`ProgramCache.batch_fleet_program`), and
+        its output fans out to every lane's boxes.
+        """
+        cfg = fleet if fleet is not None else (self.fleet or FleetConfig())
+        vols = list(vol) if isinstance(vol, (list, tuple)) else None
+        rb = len(vols) if vols is not None else None
+        devices = _one_device_type(cfg.resolve_devices(), img_s.device)
+        n_dev = len(devices)
+        steps = tuple(w.step for w in sched.steps)
+        n_steps = len(steps)
+        if n_steps == 0:
+            self._record_fleet(FleetReport(n_dev, 0, (0,) * n_dev,
+                                           0, 0, (), ()))
+            return vol
+        progs = self._fleet_programs(devices, sched, rb)
+        fs = partition_steps(steps, n_dev)
+        board = FleetStragglerBoard(n_dev, window=cfg.straggler_window,
+                                    ratio=cfg.straggler_ratio)
+        replicas = _Replicas(img_s, mat_s)
+
+        cond = threading.Condition()
+        deques = [collections.deque(q) for q in fs.queues]
+        retry: collections.deque = collections.deque()
+        counts = {"outstanding": 0, "stolen": 0, "retried": 0, "done": 0}
+        failures: collections.Counter = collections.Counter()  # per index
+        strikes: collections.Counter = collections.Counter()   # per entry
+        dead: set = set()
+        done_by_device = [0] * n_dev
+        fatal: list = []                 # [(step index, exception)]
+        broken: list = []                # a worker's own fault (the flush)
+        flush_lock = threading.Lock()
+        streams: list = []
+
+        def take(d: int):
+            """Next step index for entry ``d`` (call under ``cond``): own
+            queue in schedule order, then the fleet retry queue, then
+            steal from the tail of the neediest victim: flagged
+            (straggling) entries first, longest backlog next."""
+            if deques[d]:
+                return deques[d].popleft()
+            if retry:
+                return retry.popleft()
+            flagged = set(board.flagged)
+            victims = [v for v in range(n_dev) if v != d and deques[v]]
+            if not victims:
+                return None
+            victims.sort(key=lambda v: (v not in flagged,
+                                        -len(deques[v]), v))
+            counts["stolen"] += 1
+            telemetry.instant("fleet.steal", thief=d, victim=victims[0])
+            return deques[victims[0]].pop()
+
+        def run(d: int, dev: torch.device) -> None:
+            while True:
+                with cond:
+                    while True:
+                        if fatal or broken or d in dead:
+                            return
+                        idx = take(d)
+                        if idx is not None:
+                            counts["outstanding"] += 1
+                            break
+                        if counts["outstanding"] == 0 and not retry \
+                                and not any(deques):
+                            return      # fleet drained
+                        cond.wait(0.05)
+                step = steps[idx]
+                t0 = time.perf_counter()
+                try:
+                    if cfg.step_hook is not None:
+                        cfg.step_hook(d, idx)
+                    img_d, mat_d = replicas.get(dev)
+                    prog = progs[(step.variant, tuple(step.call_shape))]
+                    with self._step_span(step, sched.n_scan,
+                                         schedule="fleet", device=d,
+                                         step_index=idx):
+                        out = prog(img_d, mat_d,
+                                   (step.i0, step.j0, step.k_off))
+                    writes = self._fleet_writes(step, out, vol, vols)
+                except Exception as exc:  # noqa: BLE001 — any step fault
+                    with cond:
+                        counts["outstanding"] -= 1
+                        failures[idx] += 1
+                        strikes[d] += 1
+                        if failures[idx] > cfg.max_retries_per_step:
+                            fatal.append((idx, exc))
+                        else:
+                            retry.append(idx)
+                            counts["retried"] += 1
+                            telemetry.instant("fleet.failover", device=d,
+                                              step_index=idx,
+                                              retries=failures[idx])
+                        if strikes[d] >= cfg.device_strikes:
+                            dead.add(d)
+                            telemetry.instant("fleet.retire", device=d,
+                                              strikes=strikes[d])
+                        cond.notify_all()
+                    continue
+                dur = time.perf_counter() - t0
+                # disjoint boxes of a zeroed volume: the order of the
+                # steps' adds changes no bit
+                with flush_lock:
+                    for tgt, sl, host in writes:
+                        _add_host(tgt, sl, host)
+                board.record(d, idx, dur)
+                with cond:
+                    counts["outstanding"] -= 1
+                    done_by_device[d] += 1
+                    counts["done"] += 1
+                    cond.notify_all()
+
+        def worker(d: int) -> None:
+            dev = devices[d]
+            with device_scope(dev):
+                ctx, stream = _worker_stream(dev)
+                if stream is not None:
+                    with flush_lock:
+                        streams.append(stream)
+                with ctx:
+                    try:
+                        run(d, dev)
+                    except BaseException as exc:  # the others stop too
+                        with cond:
+                            broken.append(exc)
+                            cond.notify_all()
+
+        threads = [threading.Thread(target=worker, args=(d,),
+                                    name=f"recon-fleet-{d}", daemon=True)
+                   for d in range(n_dev)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if broken:
+            raise broken[0]
+        if fatal:
+            idx, exc = fatal[0]
+            raise RuntimeError(
+                f"fleet step {idx} failed more than "
+                f"max_retries_per_step={cfg.max_retries_per_step} times "
+                f"across devices — poison step, volume would be "
+                f"incomplete") from exc
+        if counts["done"] < n_steps:
+            raise RuntimeError(
+                f"fleet lost all devices with {n_steps - counts['done']} "
+                f"of {n_steps} steps unfinished "
+                f"(retired devices: {sorted(dead)})")
+        for stream in streams:
+            # a retried step's launches may outlive its failure: nothing
+            # may still read the grid when the caller frees it
+            stream.synchronize()
+        self._record_fleet(FleetReport(
+            n_devices=n_dev, n_steps=n_steps,
+            steps_by_device=tuple(done_by_device),
+            stolen=counts["stolen"], retried=counts["retried"],
+            dead_devices=tuple(sorted(dead)),
+            flagged_devices=board.flagged))
+        return vol
+
+    def _record_fleet(self, report: FleetReport) -> None:
+        with self._fleet_lock:
+            self.last_fleet_report = report
+            t = self.fleet_totals
+            t["runs"] += 1
+            t["devices"] = report.n_devices
+            t["stolen"] += report.stolen
+            t["retried"] += report.retried
+            t["dead_devices"] += len(report.dead_devices)
+
     # ---- not ported yet ---------------------------------------------------
 
     def execute_distributed(self, img_t, mats, mesh, **_):
-        raise _unported("execute_distributed", "1")
+        raise _unported("execute_distributed", "1c")
 
 
 # --------------------------------------------------------------------------

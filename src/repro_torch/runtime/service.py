@@ -57,8 +57,14 @@ Usage::
     svc.close()
 
 ``repro_torch.reconstruct(..., service=svc)`` and ``fdk_reconstruct(...,
-service=svc)`` route through the same buckets. The JAX package's
-multi-device fleet (``devices=``) waits in ROADMAP.md.
+service=svc)`` route through the same buckets.
+
+``ReconService(devices=...)`` places every bucket on a reconstruction
+fleet (``PlanExecutor.execute_fleet``): each request's steps, and a formed
+batch's lane steps (``ProgramCache.batch_fleet_program``), are spread over
+the fleet's entries with stealing and failover, and each bucket's stats
+row reports the fleet's width, steals, failovers and retired entries.
+Solver requests and stream sessions are refused on a fleet service.
 """
 
 from __future__ import annotations
@@ -77,7 +83,8 @@ from repro_torch.core.fdk import _build_plan
 from repro_torch.core.geometry import CTGeometry
 from repro_torch.runtime import telemetry
 from repro_torch.runtime.executor import (
-    PlanExecutor, ProgramCache, _unported, default_program_cache)
+    FleetConfig, PlanExecutor, ProgramCache, _one_device_type,
+    as_fleet_config, default_program_cache)
 from repro_torch.runtime.planner import ReconPlan
 
 
@@ -109,6 +116,11 @@ class BucketStats(telemetry.EmitMixin):
     ``amortized_us_per_request`` divides the summed execution wall over
     the completed requests. ``max_batch`` is the bucket's cap.
 
+    Fleet placement (all zero on a single-device service): ``devices`` is
+    the entry count of the bucket's last fleet run; ``steals``,
+    ``failovers`` (re-run steps) and ``dead_devices`` (retired entries)
+    sum the bucket executor's ``fleet_totals`` over its lifetime.
+
     Streaming: ``streams`` opened, ``streams_closed`` finished; one
     stream dispatch per folded chunk batch, ``stream_mean_lanes`` its
     fill; ``stream_tail_ms`` is the mean wall from the last view to the
@@ -135,6 +147,10 @@ class BucketStats(telemetry.EmitMixin):
     batch_p50_ms: Optional[float] = None
     amortized_us_per_request: Optional[float] = None
     max_batch: int = 1
+    devices: int = 0
+    steals: int = 0
+    failovers: int = 0
+    dead_devices: int = 0
     streams: int = 0
     streams_closed: int = 0
     stream_dispatches: int = 0
@@ -421,7 +437,13 @@ class _Bucket:
         self.stream_hidden = 0.0
 
     def snapshot(self) -> BucketStats:
+        with self.executor._fleet_lock:
+            fleet = dict(self.executor.fleet_totals)
         return BucketStats(
+            devices=fleet["devices"],
+            steals=fleet["stolen"],
+            failovers=fleet["retried"],
+            dead_devices=fleet["dead_devices"],
             variant=self.plan.variant,
             vol_shape_xyz=self.plan.vol_shape_xyz,
             n_proj=self.plan.n_proj,
@@ -483,24 +505,47 @@ class ReconService:
         together. Bounded by members' deadlines; ``priority > 0`` ships
         at once.
     device : where every bucket runs (``None``: the CUDA card, which
-        raises without one; ``"cpu"`` for the plain PyTorch path).
-    devices : the JAX package's multi-device fleet, not ported: raises.
+        raises without one; ``"cpu"`` for the plain PyTorch path). With
+        ``devices``, where requests are filtered before the fleet takes
+        their steps; it defaults to the fleet's first entry and must be
+        of the entries' type.
+    devices : multi-device placement for every bucket. ``None`` (the
+        default) keeps single-device execution; ``"all"`` spreads each
+        reconstruction's step schedule over every CUDA device, an int N
+        over the first N; a sequence of devices (an entry may repeat:
+        ``("cuda:0",) * 2``, ``("cpu",) * 8``) or a
+        :class:`~repro_torch.runtime.executor.FleetConfig` is used as
+        given. Fleet buckets plan ``out="host"`` / ``schedule="step"`` by
+        default (the fleet's placement) and run with straggler-aware work
+        stealing and per-step failover (``PlanExecutor.execute_fleet``);
+        the totals surface per bucket in :class:`ServiceStats`. Solver
+        requests and stream sessions are refused on a fleet service.
+        Without a card, ``"all"`` and an int raise; so do entries of more
+        than one device type (``("cuda:0", "cpu")``).
+    fleet_max_retries : per-STEP failover budget of fleet buckets
+        (``FleetConfig.max_retries_per_step``); ignored without
+        ``devices``.
     """
 
     def __init__(self, *, max_inflight: int = 2, pipeline: str = "async",
                  cache: Optional[ProgramCache] = None, tuning=None,
                  max_batch: int = 1, max_wait_ms: float = 0.0,
-                 device=None, devices=None):
-        if devices is not None:
-            raise _unported("ReconService(devices=...) (fleet execution)",
-                            "1")
+                 device=None, devices=None, fleet_max_retries: int = 2):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
+        self.fleet: Optional[FleetConfig] = as_fleet_config(
+            devices, max_retries_per_step=fleet_max_retries)
+        if self.fleet is not None:
+            entries = self.fleet.resolve_devices()   # raises without a card
+            if device is None:
+                device = entries[0]
         self.device = resolve_device(device)
+        if self.fleet is not None:
+            _one_device_type(entries, self.device)
         self.cache = cache if cache is not None else default_program_cache()
         self.pipeline = pipeline
         self.tuning = tuning
@@ -588,6 +633,11 @@ class ReconService:
         if solver != "none":
             # solver buckets own a device volume and resolve
             # heuristically (tuning is method-aware: autotune(method=))
+            if self.fleet is not None:
+                raise ValueError(
+                    "iterative solver requests run single-device (the "
+                    "solve loop owns the volume); they cannot ride a "
+                    "fleet service (ReconService(devices=...))")
             if variant == "auto":
                 variant = "algorithm1_mp"
             tuning = None
@@ -601,6 +651,11 @@ class ReconService:
                 variant = "algorithm1_mp"
             tuning = None
             kw["ingest"] = ingest
+        if self.fleet is not None:
+            # the fleet accumulates on the host over the step schedule;
+            # explicit contrary choices fail in PlanExecutor's validation
+            kw["out"] = kw["out"] or "host"
+            kw["schedule"] = kw["schedule"] or "step"
         if solver == "none" and solver_kw:
             raise ValueError(
                 f"solver knobs {sorted(solver_kw)} need an iterative "
@@ -634,7 +689,8 @@ class ReconService:
                 geom, plan, cache=self.cache,
                 pipeline=config.pipeline if tuned else self.pipeline,
                 pipeline_depth=config.pipeline_depth if tuned else 2,
-                tuned=config if tuned else None, device=self.device)
+                tuned=config if tuned else None, fleet=self.fleet,
+                device=self.device)
         ex.warm()
         cap = self._effective_cap(config)
         if cap > 1 and ex.supports_request_batching:
@@ -811,7 +867,13 @@ class ReconService:
         with one lane launch per step. ``max_pending_chunks`` bounds the
         session's ready chunks (``push`` blocks beyond it); ``priority >
         0`` folds the session's chunks without waiting for peers.
-        ``proj_batch`` defaults to ~n_proj/8 views a chunk."""
+        ``proj_batch`` defaults to ~n_proj/8 views a chunk. A fleet
+        service (``devices=``) refuses: a stream folds chunks on one
+        device."""
+        if self.fleet is not None:
+            raise ValueError(
+                "streaming sessions do not compose with fleet execution; "
+                "construct the service without devices=")
         opts = dict(options)
         opts["ingest"] = "stream"
         if opts.get("proj_batch") is None:

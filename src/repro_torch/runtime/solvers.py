@@ -36,8 +36,9 @@ iteration (``runtime.telemetry``), and :class:`SolveReport` has the
 shared ``as_dict()``/``emit()`` report contract. ``runtime.service``
 serves solver plans from its buckets through the duck-type surface
 (``warm`` / ``reconstruct`` / ``pipeline`` / ``tuned`` /
-``supports_request_batching``); the JAX package's fleet waits for
-ROADMAP.md queue 1 item 1.
+``supports_request_batching``, and ``fleet`` / ``fleet_totals``, which
+a solver bucket reports empty: solver requests run on one device, and a
+fleet service refuses them).
 """
 
 from __future__ import annotations
@@ -197,6 +198,18 @@ class IterativeExecutor:
     @property
     def tuned(self):
         return self.ex.tuned
+
+    @property
+    def fleet(self):
+        return None
+
+    @property
+    def _fleet_lock(self):
+        return self.ex._fleet_lock
+
+    @property
+    def fleet_totals(self):
+        return self.ex.fleet_totals
 
     @property
     def _dtype(self):

@@ -5,7 +5,8 @@ API and the same Chrome trace and Prometheus output. Four pieces:
 
 * **Spans**: nestable wall-clock intervals on the monotonic clock
   (``time.perf_counter``), recorded per OS thread so the runtime's
-  named worker threads (``recon-flush``) become distinct lanes in the
+  named worker threads (``recon-flush``, ``recon-fleet-{d}``,
+  ``recon-serve-{i}``, ``recon-stream``) become distinct lanes in the
   exported trace. Tracing is OFF by default; :func:`span`/:func:`instant`
   then return a shared no-op singleton without allocating, so
   instrumented hot paths cost one attribute load + truth test. Enable
@@ -14,8 +15,8 @@ API and the same Chrome trace and Prometheus output. Four pieces:
 
 * **Metrics registry**: named counters / gauges / :class:`Histogram`
   (the streamed log-2 latency histogram). :class:`EmitMixin` gives every
-  report dataclass (``SolveReport``) one shared ``as_dict()``/``emit()``
-  contract.
+  report dataclass (``ServiceStats``, ``FleetReport``, ``StreamReport``,
+  ``SolveReport``) one shared ``as_dict()``/``emit()`` contract.
 
 * **Trace IDs**: :func:`new_trace_id` mints per-request IDs.
 
@@ -279,9 +280,11 @@ def dump_trace(path: str) -> str:
 
     Loadable in Perfetto (ui.perfetto.dev) or ``chrome://tracing``.
     Every distinct thread name becomes its own ``tid`` lane with a
-    ``ph:"M"`` thread_name metadata event, so the flusher thread renders
-    as its own row under one process. The process name and the lanes
-    are the JAX package's, so both packages' traces load side by side.
+    ``ph:"M"`` thread_name metadata event, so the flusher, each fleet
+    worker (``recon-fleet-{d}``), the serving workers and the stream
+    worker render as separate rows under one process. The process name
+    and the lanes are the JAX package's, so both packages' traces load
+    side by side.
     """
     with _lock:
         evs = list(_events)

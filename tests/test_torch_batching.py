@@ -32,7 +32,8 @@ from repro_torch.kernels import backproject_banded as kb
 from repro_torch.kernels import backproject_onehot as ko
 from repro_torch.kernels import backproject_subline as ks
 from repro_torch.runtime import autotune as at
-from repro_torch.runtime.executor import PlanExecutor, ProgramCache
+from repro_torch.runtime.executor import (FleetConfig, PlanExecutor,
+                                          ProgramCache)
 from repro_torch.runtime.planner import plan_reconstruction
 from repro_torch.runtime.service import ReconService, _BatchFormer, _Request
 
@@ -129,19 +130,34 @@ def test_execute_batch_device_out(setup):
 
 
 def test_execute_batch_fleet(setup):
-    """The JAX package batches under a fleet; the port's fleet waits in
-    ROADMAP.md queue 1 item 1, and says so."""
-    _, t, _ = setup
+    """As in the JAX package, a batch runs under a fleet: one rb-lane
+    fleet program a step (``batch_fleet_program``), every lane equal to
+    the request's solo reconstruct bit for bit and to the JAX package's
+    batched volume. Without a card, a fleet of CUDA devices raises
+    (tests/test_torch_fleet.py has the rest of the fleet)."""
+    _, t, reqs = setup
     plan = plan_reconstruction(t, "algorithm1_mp", nb=2, proj_batch=4,
-                               tile_shape=(8, 8, 16))
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        PlanExecutor(t, plan, cache=ProgramCache(), fleet=object(),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        ProgramCache().batch_fleet_program("algorithm1_mp", (16, 16, 16), 2,
-                                           "float32", True, rb=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        ReconService(devices=1, device="cpu")
+                               tile_shape=(8, 8, 16), out="host")
+    cache = ProgramCache()
+    ex = PlanExecutor(t, plan, cache=cache,
+                      fleet=FleetConfig(devices=("cpu",) * 3))
+    seq = [ex.reconstruct(p) for p in reqs]
+    ex.warm_batch(len(reqs))
+    assert any(k[0] == "batch_fleet" for k in cache._programs)
+    bat = ex.execute_batch(reqs)
+    _assert_bit_identical(seq, bat)
+    assert ex.last_fleet_report.n_devices == 3
+    for got, want in zip(bat, _jax_batch(setup, "algorithm1_mp",
+                                         tile_shape=(8, 8, 16),
+                                         out="host")):
+        assert rel_rmse(_np(got), want) < BAR
+    prog = cache.batch_fleet_program("algorithm1_mp", (16, 16, 16), 2,
+                                     "float32", True, n_chunks=2,
+                                     chunk_size=4, rb=2)
+    assert callable(prog)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ReconService(devices=1, device="cpu")
 
 
 def test_execute_batch_edges(setup):

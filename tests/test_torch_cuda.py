@@ -846,3 +846,123 @@ def test_execute_batch_on_card_equals_solo(cuda):
         assert _lane_counts()[fused] - before == 2     # two chunks
         for a, b in zip(solo, bat):
             assert torch.equal(a, b), variant
+
+
+FLEET_FUSED = (("subline_pl", ks, "backproject_subline_fused"),
+               ("onehot_pl", ko, "backproject_onehot_fused"),
+               ("banded_pl", kb, "backproject_banded_fused"))
+
+
+def _fleet_case():
+    from repro_torch.runtime.planner import plan_reconstruction
+    g = standard_geometry(n=32, n_det=48, n_proj=16)
+    projs = np.random.RandomState(4).rand(16, g.nh, g.nw).astype(np.float32)
+    return g, projs, lambda variant: plan_reconstruction(
+        g, variant, nb=4, tile_shape=(16, 16, 8), proj_batch=8, out="host")
+
+
+@pytest.mark.parametrize("variant,mod,fused", FLEET_FUSED,
+                         ids=[v for v, _, _ in FLEET_FUSED])
+def test_fleet_on_card_equals_single_walk(cuda, variant, mod, fused):
+    """Two workers on one card (``("cuda:0",) * 2``): the volume equals
+    the single-device step-major walk bit for bit, through the variant's
+    kernel, one launch per step and chunk."""
+    from repro_torch.runtime.executor import (FleetConfig, PlanExecutor,
+                                              ProgramCache)
+    g, projs, plan_of = _fleet_case()
+    plan = plan_of(variant)
+    cache = ProgramCache()
+    single = PlanExecutor(g, plan, cache=cache, device=cuda).reconstruct(
+        projs)
+    ex = PlanExecutor(g, plan, cache=cache,
+                      fleet=FleetConfig(devices=("cuda:0",) * 2))
+    before = mod.LAUNCHES[fused]
+    vol = ex.reconstruct(projs)
+    assert np.array_equal(vol, single)
+    assert mod.LAUNCHES[fused] - before == len(plan.steps) * len(plan.chunks)
+    assert sum(ex.last_fleet_report.steps_by_device) == len(plan.steps)
+
+
+@pytest.mark.parametrize("variant,mod,fused", FLEET_FUSED,
+                         ids=[v for v, _, _ in FLEET_FUSED])
+def test_fleet_batch_on_card_equals_solo_walks(cuda, variant, mod, fused):
+    """``execute_batch`` of two requests on ``("cuda:0",) * 2``: one
+    rb-lane launch per step and chunk, and each lane's volume equals its
+    request's single-device walk bit for bit."""
+    from repro_torch.runtime.executor import (FleetConfig, PlanExecutor,
+                                              ProgramCache)
+    g, projs, plan_of = _fleet_case()
+    projs2 = np.random.RandomState(5).rand(*projs.shape).astype(np.float32)
+    plan = plan_of(variant)
+    cache = ProgramCache()
+    solo = [PlanExecutor(g, plan, cache=cache, device=cuda).reconstruct(x)
+            for x in (projs, projs2)]
+    ex = PlanExecutor(g, plan, cache=cache,
+                      fleet=FleetConfig(devices=("cuda:0",) * 2))
+    ex.warm_batch(2)
+    before = dict(mod.LAUNCHES)
+    got = ex.execute_batch([projs, projs2])
+    assert all(np.array_equal(a, b) for a, b in zip(got, solo))
+    n = {k: v - before[k] for k, v in mod.LAUNCHES.items()}
+    assert n[f"{fused}_lanes"] == len(plan.steps) * len(plan.chunks)
+    assert sum(n.values()) == n[f"{fused}_lanes"]
+
+
+def test_fleet_refuses_mixed_device_types_on_card(cuda):
+    """With a card present, a fleet of CUDA and CPU entries, or CPU
+    entries under inputs filtered on the card, raises: no failed card
+    step can re-run on the CPU through the plain version."""
+    from repro_torch.core.fdk import fdk_reconstruct
+    from repro_torch.runtime.executor import (FleetConfig, PlanExecutor,
+                                              as_fleet_config)
+    from repro_torch.runtime.service import ReconService
+    g, projs, plan_of = _fleet_case()
+    for devices in (("cuda:0", "cpu"), ("cpu", "cuda")):
+        with pytest.raises(ValueError, match="one device type"):
+            as_fleet_config(devices)
+        with pytest.raises(ValueError, match="one device type"):
+            FleetConfig(devices=devices).resolve_devices()
+        with pytest.raises(ValueError, match="one device type"):
+            fdk_reconstruct(projs, g, tiling=(16, 16, 8), proj_batch=8,
+                            devices=devices)
+        with pytest.raises(ValueError, match="one device type"):
+            ReconService(devices=devices)
+    with pytest.raises(ValueError, match="filtered on cuda"):
+        PlanExecutor(g, plan_of("subline_pl"), device=cuda,
+                     fleet=FleetConfig(devices=("cpu",) * 2))
+    with pytest.raises(ValueError, match="filtered on cuda"):
+        ReconService(devices=("cpu",) * 2, device=cuda)
+
+
+def test_fleet_failover_on_card(cuda):
+    """Entry 1 faults on every step: it is retired with 0 steps, entry 0
+    re-runs its steps with the same kernel, and the volume is the single
+    walk's bit for bit; a step failing everywhere aborts the run."""
+    from repro_torch.runtime.executor import (FleetConfig, PlanExecutor,
+                                              ProgramCache)
+    g, projs, plan_of = _fleet_case()
+    plan = plan_of("subline_pl")
+    cache = ProgramCache()
+    single = PlanExecutor(g, plan, cache=cache, device=cuda).reconstruct(
+        projs)
+
+    def fail_entry1(entry, step):
+        if entry == 1:
+            raise RuntimeError("injected device fault")
+
+    ex = PlanExecutor(g, plan, cache=cache, fleet=FleetConfig(
+        devices=("cuda:0",) * 2, step_hook=fail_entry1))
+    vol = ex.reconstruct(projs)
+    rep = ex.last_fleet_report
+    assert np.array_equal(vol, single)
+    assert rep.dead_devices == (1,) and rep.steps_by_device[1] == 0
+    assert rep.retried >= 1
+
+    def poison(entry, step):
+        if step == 0:
+            raise RuntimeError("injected poison step")
+
+    ex = PlanExecutor(g, plan, cache=cache, fleet=FleetConfig(
+        devices=("cuda:0",) * 2, step_hook=poison))
+    with pytest.raises(RuntimeError, match="max_retries_per_step"):
+        ex.reconstruct(projs)

@@ -25,7 +25,8 @@ from repro_torch.core.fdk import _build_plan
 from repro_torch.kernels import backproject_banded as kb
 from repro_torch.kernels import backproject_onehot as ko
 from repro_torch.kernels import backproject_subline as ks
-from repro_torch.runtime.executor import PlanExecutor, ProgramCache
+from repro_torch.runtime.executor import (FleetConfig, PlanExecutor,
+                                          ProgramCache)
 
 from conftest import rel_rmse
 
@@ -217,9 +218,10 @@ def test_options_fields_match_jax():
 # variant="auto" and tuning= are ported too: their cases (kw0, kw1, kw2,
 # kw7) became combinations with service= or devices=, and the options
 # alone run in tests/test_torch_autotune.py; service= is ported: its
-# cases (kw0, kw2, kw3) became combinations with devices=, the one
-# option that still raises, and service= runs in
-# tests/test_torch_service.py
+# cases (kw0, kw2, kw3) became combinations with devices=, and service=
+# runs in tests/test_torch_service.py; devices= is ported as well (the
+# fleet, tests/test_torch_fleet.py): every case still raises, for asking
+# for two cards or for pairing devices= with service=
 @pytest.mark.parametrize("kw", [
     dict(tiling=(8, 8, 8), precision="bf16", variant="auto", devices=2),
     dict(memory_budget=1 << 20, tuning="cache.json", devices=2),
@@ -229,11 +231,24 @@ def test_options_fields_match_jax():
     dict(precision="bf16", devices=2), dict(variant="auto", devices=2),
 ])
 def test_unported_options_raise(kw):
+    """devices= is ported too (tests/test_torch_fleet.py runs the fleet on
+    the CPU); these combinations still raise: ``devices=2`` asks for two
+    cards (there is no silent CPU fleet), and a service owns its devices,
+    so ``service=`` with ``devices=`` is refused."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA devices are present")
     _, t, p, _ = _problem("smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                                                  "item 1"):
+    device = "cpu"
+    if "service" in kw:
+        device = None             # the service owns the device too
+        err, match = ValueError, "do not pass both service= and devices="
+    elif torch.cuda.is_available():
+        err, match = ValueError, "CUDA devices are available"
+    else:
+        err, match = RuntimeError, "no CUDA device"
+    with pytest.raises(err, match=match):
         repro_torch.reconstruct(p, t, options=ReconOptions(**kw),
-                                device="cpu")
+                                device=device)
 
 
 @pytest.mark.parametrize("kw", [dict(tiling=(8, 8, 8), precision="bf16"),
@@ -281,9 +296,11 @@ def test_iterative_methods_raise(method):
 
 
 def test_unported_variant_and_executor_paths_raise():
-    """What still raises is the fleet (ROADMAP.md queue 1 item 1); the
-    stream and batched plans, ``open_stream`` and ``execute_batch`` run
-    (tests/test_torch_streaming.py, tests/test_torch_batching.py)."""
+    """What still raises is distributed back-projection (ROADMAP.md queue
+    1 item 1c); the fleet refuses a device-volume plan, as the JAX package
+    does; the stream and batched plans, ``open_stream`` and
+    ``execute_batch`` run (tests/test_torch_streaming.py,
+    tests/test_torch_batching.py)."""
     from repro_torch.runtime.planner import plan_reconstruction
     _, t, p, _ = _problem("smoke")
     stream = plan_reconstruction(t, "algorithm1_mp", ingest="stream")
@@ -298,12 +315,12 @@ def test_unported_variant_and_executor_paths_raise():
                          [bex.reconstruct(p)] * 2):
         assert np.array_equal(got, want)
     plan = plan_reconstruction(t, "algorithm1_mp", out="device")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        PlanExecutor(t, plan, fleet=object(), device="cpu")
+    with pytest.raises(ValueError, match="out='host'"):
+        PlanExecutor(t, plan, fleet=FleetConfig(devices=("cpu",) * 2))
     ex = PlanExecutor(t, plan, device="cpu")
     with pytest.raises(ValueError, match="chunk-major"):
         ex.open_stream()
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 1c"):
         ex.execute_distributed(None, None, None)
     with pytest.raises(ValueError, match="full scan"):
         ex.reconstruct(p[:-1])

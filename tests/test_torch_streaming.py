@@ -311,10 +311,11 @@ def test_service_stream_defaults_single_session():
 
 
 def test_service_stream_rejects_fleet():
-    """The JAX service refuses a stream on a fleet; the port's fleet
-    (``devices=``) is not ported and says which queue item it waits in."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        ReconService(cache=_PCACHE, devices=1, device="cpu")
+    """The JAX service refuses a stream on a fleet, and so does the port's
+    (a stream folds its chunks on one device)."""
+    with ReconService(cache=_PCACHE, devices=("cpu",) * 2) as fleet_svc:
+        with pytest.raises(ValueError, match="without devices="):
+            fleet_svc.open_stream(GEOM)
     svc = ReconService(cache=_PCACHE, device="cpu")
     svc.close()
     with pytest.raises(RuntimeError, match="closed"):
