@@ -109,6 +109,24 @@ walls print beside the step host walls of ``[tiled]``; the checked runs'
 launches join each kernel's row as ``launches_fleet``. One card shows the
 fleet's correctness and its threads' cost, not scaling across cards.
 
+The mesh and the dense LM (phases ``[dist]`` and ``[lm]``, after
+``[fleet]``, before P10): ``CTProjectionSource`` projects a 128^3 Shepp-Logan phantom
+through F1 (one launch, held to its plain version; the launch joins F1's
+row as ``launches_source``) and its batches go through the (2, 2, 2)
+pod/data/model mesh on ("cuda:0",) * 8; then at P5 on random views
+``distributed_backproject`` on that mesh and on a (1, 1, 1) mesh, and
+the tiled composition ``TiledReconstructor.backproject_distributed``,
+sync and async, each within 1e-5 (rel-max) of the card's single-device
+``bp_subline_symmetry_scan``, async equal to sync bit for bit, no kernel
+of K1-K6 launched (one card shows correctness, not scaling).
+qwen2.5-3b at full width (36 layers, d_model 2048, 151936 words) with
+weights from a seeded generator on the card: in float32, prefill and
+decode steps against the teacher-forced logits (rel max-abs 1e-3); in
+bf16, ``BatchedServer`` (4 slots, max_len 256) serving 6 byte-tokenized
+prompts 24 tokens each: prefill and decode walls, tokens/s, peak memory,
+the decode step's bound (weight and cache bytes over HBM bandwidth), the
+ops a step dispatches and its device busy time under the profiler.
+
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
@@ -2891,6 +2909,332 @@ def phase_fleet(seed: int, plain, walls) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# mesh-sharded back-projection and the CT projection source
+# --------------------------------------------------------------------------
+
+DIST_PROBLEM = "P5"               # the mesh walks' problem (random views)
+DIST_TILE = (256, 256)            # the tiled composition's (i, j) tile
+DIST_NB = 8                       # views a mesh batch (4 a pod)
+POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+
+
+def _rel_max(got, want) -> float:
+    """max |got - want| / max |want|, in float64 on the card."""
+    import torch
+    if not isinstance(got, torch.Tensor):
+        got = torch.from_numpy(got)
+    got = got.to(want.device, torch.float64)
+    want = want.to(torch.float64)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_dist(seed: int, card: str) -> int:
+    """The CT projection source at FORWARD_N^3 (F1 on the card, against
+    its plain version) feeding the (2, 2, 2) mesh; then the mesh walks at
+    DIST_PROBLEM on random views: ``distributed_backproject`` on
+    ("cuda:0",) * 8 as a (2, 2, 2) pod/data/model mesh and on ("cuda:0",)
+    as (1, 1, 1), and the tiled composition (``TiledReconstructor.
+    backproject_distributed``) sync and async, each against the card's
+    single-device ``bp_subline_symmetry_scan`` at rel-max 1e-5, async
+    equal to sync bit for bit. The mesh path runs the plain ladder, no
+    kernel of K1-K6. Returns the source's F1 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.ct_paper import get_problem
+    from repro_torch.core.backproject import (bp_subline_symmetry_scan,
+                                              transpose_projections)
+    from repro_torch.core.distributed import distributed_backproject
+    from repro_torch.core.geometry import (projection_matrices,
+                                           standard_geometry)
+    from repro_torch.data import CTProjectionSource
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.engine import TiledReconstructor
+
+    t_phase = time.perf_counter()
+    entry = f"{DEVICE}:0"
+    print(f"[dist] {card}; one card shows the mesh's correctness, not its "
+          f"scaling: every entry is {entry}")
+    pod = make_mesh(*POD_MESH, (entry,) * 8)
+    one = make_mesh((1, 1, 1), POD_MESH[1], (entry,))
+
+    # ---- the source: phantom -> F1 -> batches -> the mesh ----------------
+    n = FORWARD_N
+    geom = standard_geometry(n=n, n_det=n, n_proj=n)
+    reset_launches()
+    t0 = time.perf_counter()
+    src = CTProjectionSource(geom, nb=DIST_NB, device=DEVICE)
+    t1 = time.perf_counter()
+    f1 = launches()[F1]
+    require(f1 == 1 and sum(launches().values()) == 1,
+            f"CTProjectionSource: launches {launches()}, want one of F1")
+    vol = torch.from_numpy(src.volume).to(DEVICE)
+    plain = plain_march(vol, geom, 2.0, np.arange(geom.n_proj))
+    projs = torch.from_numpy(src.projections).to(DEVICE)
+    r = rel_rmse(projs, plain)
+    batches = list(src)
+    require(r < BAR, "the source's projections disagree with F1's plain "
+            "version")
+    require([len(i) for _, i in batches] == [DIST_NB] * (n // DIST_NB)
+            and np.array_equal(np.concatenate([i for _, i in batches]),
+                               np.arange(n)), "the source's batches")
+    img_t = transpose_projections(projs)
+    mats = projection_matrices(geom, DEVICE)
+    want = bp_subline_symmetry_scan(img_t, mats, geom.volume_shape_xyz)
+    got = distributed_backproject(img_t, mats, geom, pod, nb=DIST_NB)
+    e_src = _rel_max(got, want)
+    print(f"[dist] CTProjectionSource at {n}^3 (Shepp-Logan, {n} views, "
+          f"oversample 2): {1e3 * (t1 - t0):.1f} ms (phantom on the host, "
+          f"host clock), {f1} launch of F1, vs F1's plain version rel_rmse "
+          f"{r:.3e}; {len(batches)} batches of {DIST_NB}; through the "
+          f"(2, 2, 2) mesh vs the single-device scan rel-max {e_src:.3e}")
+    require(got.device.type == DEVICE and e_src < BAR,
+            "the source's mesh back-projection disagrees with the scan")
+    del vol, plain, projs, img_t, mats, want, got, src
+
+    # ---- the mesh walks at DIST_PROBLEM ---------------------------------
+    geom = get_problem(DIST_PROBLEM).geometry()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    img_t = torch.rand((geom.n_proj, geom.nw, geom.nh), generator=gen,
+                       device=DEVICE)
+    mats = projection_matrices(geom, DEVICE)
+    walls = {}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = 1e3 * (time.perf_counter() - t)
+        return out
+
+    reset_launches()
+    ref = run("single-device scan", lambda: bp_subline_symmetry_scan(
+        img_t, mats, geom.volume_shape_xyz))
+    checks = {}
+    for label, mesh in ((f"(2, 2, 2) mesh on ('{entry}',) * 8", pod),
+                        (f"(1, 1, 1) mesh on ('{entry}',)", one)):
+        vol = run(label, lambda: distributed_backproject(
+            img_t, mats, geom, mesh, nb=DIST_NB))
+        require(vol.device.type == DEVICE and vol.device.index in (None, 0)
+                and tuple(vol.shape) == geom.volume_shape_xyz,
+                f"{label}: {vol.device}, {tuple(vol.shape)}")
+        checks[label] = _rel_max(vol, ref)
+        del vol
+    eng = TiledReconstructor(geom, tile_shape=DIST_TILE + (geom.nz,),
+                             nb=DIST_NB, device=DEVICE)
+    tiled = run("tiled sync", lambda: eng.backproject_distributed(
+        img_t, mats, pod, nb=DIST_NB))
+    checks["tiled sync"] = _rel_max(tiled, ref)
+    tiled_async = run("tiled async", lambda: eng.backproject_distributed(
+        img_t, mats, pod, nb=DIST_NB, pipeline="async"))
+    same = bool(np.array_equal(tiled, tiled_async))
+    n_k = launches()
+    for label, e in checks.items():
+        print(f"[dist] {DIST_PROBLEM} {label}: rel-max {e:.3e} against the "
+              f"single-device scan")
+        require(e < BAR, f"{label} disagrees with the single-device scan")
+    require(same, "the async tiled mesh walk is not bitwise equal to sync")
+    require(sum(n_k.values()) == 0, f"the mesh path launched {n_k}")
+    print(f"[dist] {DIST_PROBLEM} tiled {DIST_TILE} x the (2, 2, 2) mesh: "
+          f"async bitwise equal to sync; no kernel of K1-K6 launched (the "
+          f"mesh runs the plain ladder, as the reference runs its pure-JAX "
+          f"one)")
+    print(f"[dist] {DIST_PROBLEM} walls (host clock, one run each; {card}): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items()))
+    print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
+    return f1
+
+
+# --------------------------------------------------------------------------
+# the dense LM, served
+# --------------------------------------------------------------------------
+
+LM_ARCH = "qwen2.5-3b"
+LM_DIMS = (36, 2048, 16, 2, 11008, 151936)   # layers, d, heads, kv, ff, V
+LM_BAR = 1e-3                     # rel max-abs of the logits' max
+LM_TOKENS = (2, 12)               # teacher-forced batch and length
+LM_PREFILL = 8
+LM_SLOTS = 4
+LM_MAX_LEN = 256
+LM_NEW_TOKENS = 24
+LM_PROMPTS = ("The projection matrix maps", "Back-projection is",
+              "Cone beam computed tomography",
+              "Performance portability means", "Vectorization on CPUs",
+              "The subline buffer caches")
+# two waves of four and two requests, each 23 decode steps after prefill
+LM_STEPS = 2 * (LM_NEW_TOKENS - 1)
+
+
+def _lm_cfg(dtype: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.d_ff, cfg.vocab_size) == LM_DIMS, f"{LM_ARCH} dims")
+    return cfg
+
+
+def phase_lm(seed: int, card: str) -> None:
+    """qwen2.5-3b at full width, weights from a seeded generator on the
+    card: in float32, prefill of LM_PREFILL tokens then decode steps
+    against the teacher-forced forward (rel max-abs LM_BAR); then in bf16,
+    ``BatchedServer`` with LM_SLOTS slots over the byte-tokenized prompts,
+    with prefill and decode walls, tokens/s, peak memory and the decode
+    step's bound (weight and cache bytes over HBM bandwidth)."""
+    import gc
+    import statistics as stats
+    import numpy as np
+    import torch
+    from repro_torch.data import ByteTokenizer
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import build_model
+    from repro_torch.models.model import count_params_analytic
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        """Counts the aten ops dispatched inside it."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    t_phase = time.perf_counter()
+    print(f"[lm] {LM_ARCH} at full width {LM_DIMS} (layers, d_model, heads, "
+          f"kv heads, d_ff, vocab); {card}")
+
+    # ---- float32: prefill and decode against teacher forcing -----------
+    cfg = _lm_cfg("float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == count_params_analytic(cfg) - cfg.d_model,
+            f"{n_params} parameters")
+    require(all(p.device.type == DEVICE for p in model.parameters()),
+            "a parameter is not on the card")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, LM_TOKENS, generator=gen,
+                           device=DEVICE)
+    full, _ = model({"tokens": tokens})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    logits, cache, pos = model.prefill({"tokens": tokens[:, :LM_PREFILL]},
+                                       LM_TOKENS[1])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    errs = [float((logits[:, -1] - full[:, pos - 1]).abs().max())]
+    step_ms = []
+    for t in range(LM_PREFILL, LM_TOKENS[1]):
+        t4 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t4))
+        errs.append(float((logits[:, -1] - full[:, t]).abs().max()))
+    scale = float(full.abs().max())
+    rel = max(errs) / scale
+    print(f"[lm] float32: {n_params} parameters ({4 * n_params / 1e9:.2f} "
+          f"GB), drawn on the card in {1e3 * (t1 - t0):.1f} ms; forward of "
+          f"{LM_TOKENS} tokens {1e3 * (t2 - t1):.1f} ms, prefill of "
+          f"{LM_PREFILL} {1e3 * (t3 - t2):.1f} ms, decode steps "
+          f"{', '.join(f'{m:.1f}' for m in step_ms)} ms (host clock, first "
+          f"calls); prefill and {len(step_ms)} decode steps vs teacher "
+          f"forcing: max abs {max(errs):.3e} of max |logit| {scale:.3e} "
+          f"(rel {rel:.3e})")
+    require(bool(torch.isfinite(full).all()) and rel < LM_BAR,
+            "float32 prefill/decode disagree with teacher forcing")
+    del model, cache, full, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- bf16: the continuous-batching server ----------------------------
+    cfg = _lm_cfg("bfloat16")
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    tok = ByteTokenizer(cfg.vocab_size)
+    server = BatchedServer(cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    pending = [Request(prompt=tok.encode(p), max_new_tokens=LM_NEW_TOKENS)
+               for p in LM_PROMPTS]
+    done, prefill_ms, decode_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    while pending or any(r is not None for r in server.requests):
+        while pending:
+            t = time.perf_counter()
+            if not server.submit(pending[0]):
+                break
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t))
+            done.append(pending.pop(0))
+        t = time.perf_counter()
+        server.step()
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t))
+        require(len(decode_ms) <= 4 * LM_STEPS, "the server does not drain")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r.out) for r in done)
+    require(len(done) == len(LM_PROMPTS) and len(decode_ms) == LM_STEPS
+            and all(len(r.out) == LM_NEW_TOKENS for r in done)
+            and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+            f"served {len(done)} requests in {len(decode_ms)} steps")
+    for r in done:
+        # a request's first token is its prompt's greedy next token (up to
+        # bf16 noise: the teacher-forced product has another shape)
+        logits, _ = model({"tokens": torch.as_tensor(
+            r.prompt.astype(np.int64), device=DEVICE)[None]})
+        last = logits[0, -1]
+        require(float(last.max() - last[r.out[0]])
+                <= 1e-2 * float(last.abs().max()),
+                "a first token is not the prompt's greedy next token")
+    cache = server._cache
+    c_bytes = sum(a.numel() * a.element_size() for a in cache.values())
+    bound = (w_bytes + c_bytes) / PEAK_BYTES * 1e3
+    steady = stats.median(decode_ms[1:])
+    # where a warm decode step's time goes: the ops it dispatches (host
+    # work) and the card's busy time under the profiler; both steps write
+    # a position past every request's, after serving
+    toks = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=DEVICE)
+    counter = OpCount()
+    with counter:
+        server._decode(cache, toks, LM_MAX_LEN - 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        server._decode(cache, toks, LM_MAX_LEN - 1)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t)
+    busy, _ = device_split(prof, {})
+    print(f"[lm] bf16 BatchedServer, {LM_SLOTS} slots, max_len "
+          f"{LM_MAX_LEN}: {len(done)} requests x {LM_NEW_TOKENS} tokens in "
+          f"{len(decode_ms)} decode steps, {1e3 * wall:.1f} ms (host clock), "
+          f"{n_tok / wall:.1f} tokens/s; prefill a request median "
+          f"{stats.median(prefill_ms):.3f} ms (first {prefill_ms[0]:.3f}); "
+          f"decode step median {steady:.3f} ms after the first "
+          f"({decode_ms[0]:.3f}); peak memory {peak / 2**30:.3f} GiB")
+    print(f"[lm] decode step bound: weights {w_bytes / 1e9:.3f} GB + cache "
+          f"{c_bytes / 1e9:.4f} GB over 3.35 TB/s = {bound:.3f} ms (bytes); "
+          f"the step at {bound / steady:.4f} of it")
+    print(f"[lm] a warm bf16 decode step dispatches {counter.n} ops "
+          f"({steady / counter.n * 1e3:.1f} us of the median step each); "
+          f"under the profiler: wall {prof_ms:.3f} ms, device busy "
+          + (f"{busy:.3f} ms, idle share {1.0 - busy / prof_ms:.4f}"
+             if busy > 0.0 else "not recorded (not measured)"))
+    print(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
+    del server, model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2933,6 +3277,11 @@ def main(argv=None) -> int:
     service = phase_service(args.seed, plain)
     # the fleet: its checked runs' launches join each row as launches_fleet
     fleet = phase_fleet(args.seed, plain, walls)
+    # mesh-sharded back-projection (the plain ladder) and the CT projection
+    # source, whose F1 launches join F1's row; then the dense LM served.
+    # After every earlier phase, which keep the process state they had
+    rows[F1]["launches_source"] = phase_dist(args.seed, card)
+    phase_lm(args.seed, card)
     for name, row in rows.items():
         row["launches_batch"] = (batch.get(name, 0) + stream.get(name, 0)
                                  + service.get(name, 0))

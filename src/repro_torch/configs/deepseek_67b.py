@@ -1,0 +1,27 @@
+"""deepseek-67b [dense] — 95L d_model=8192 64H (GQA kv=8) d_ff=22016
+vocab=102400 — llama-arch.  [arXiv:2401.02954; hf]"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-67b",
+    family="dense",
+    n_layers=95,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=22016,
+    vocab_size=102400,
+    norm="rmsnorm",
+    activation="swiglu",
+    rope_theta=10000.0,
+)
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-67b-smoke", family="dense",
+        n_layers=3, d_model=64, n_heads=8, n_kv_heads=2, d_ff=96,
+        vocab_size=512, norm="rmsnorm", activation="swiglu",
+        dtype="float32", attn_chunk=64, remat=False,
+    )

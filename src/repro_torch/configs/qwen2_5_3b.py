@@ -1,0 +1,30 @@
+"""qwen2.5-3b [dense] — 36L d_model=2048 16H (GQA kv=2) d_ff=11008
+vocab=151936 — GQA, QKV bias.  [hf:Qwen/Qwen2.5-0.5B; hf]"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-3b",
+    family="dense",
+    n_layers=36,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=2,
+    d_ff=11008,
+    vocab_size=151936,
+    qkv_bias=True,
+    tie_embeddings=True,    # qwen2.5-3b ties input/output embeddings
+    norm="rmsnorm",
+    activation="swiglu",
+    rope_theta=1000000.0,
+)
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2.5-3b-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=1, d_ff=128,
+        vocab_size=512, qkv_bias=True, tie_embeddings=True,
+        norm="rmsnorm", activation="swiglu", dtype="float32",
+        attn_chunk=64, remat=False,
+    )

@@ -1,15 +1,15 @@
 """State carried across from the JAX package.
 
-CT has no trained weights: the state both packages share is the
-acquisition geometry and the projection stack. These two functions take
-them over from plain Python and numpy values, so the port never imports
-the JAX package.
+For CT the state both packages share is the acquisition geometry and
+the projection stack; for the LM substrate, the parameters. These
+functions take them over from plain Python and numpy values, so the port
+never imports the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -44,3 +44,52 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     if not arr.flags.writeable:     # e.g. a view of another framework's
         arr = arr.copy()            # buffer: torch wants writable memory
     return torch.from_numpy(arr).to(dev)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = val
+    return out
+
+
+def lm_params_from_reference(model, tree: Mapping):
+    """Load another package's LM parameter tree into ``model`` (a module
+    from ``repro_torch.models.build_model``) and return the model.
+
+    ``tree`` is the JAX package's parameter pytree as nested dicts of
+    numpy arrays: ``embed``, ``ln_f``, ``layers`` (every leaf with the
+    stacked leading layer axis) and, untied, ``unembed``. Weights are
+    stored ``(d_in, d_out)`` on both sides, so nothing is transposed.
+    Values pass through float32 (exact for float32, bfloat16 and
+    float16) and land in each parameter's dtype on its device. Raises
+    ``ValueError`` on a missing or unknown leaf, or a shape that does
+    not match.
+    """
+    flat = {}
+    for name, arr in _flatten(tree).items():
+        arr = np.array(arr, np.float32)    # a writable copy
+        if name.startswith("layers."):
+            rest = name[len("layers."):]
+            for layer in range(arr.shape[0]):
+                flat[f"layers.{layer}.{rest}"] = arr[layer]
+        else:
+            flat[name] = arr
+    params = dict(model.named_parameters())
+    missing, extra = set(params) - set(flat), set(flat) - set(params)
+    if missing or extra:
+        raise ValueError(
+            f"parameter tree does not match the model: missing "
+            f"{sorted(missing)}, unknown {sorted(extra)}")
+    with torch.no_grad():
+        for name, p in params.items():
+            arr = flat[name]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(arr.shape)}, the "
+                                 f"model has {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    return model

@@ -3,8 +3,8 @@
 The port carries the pure half of the JAX package's module:
 :func:`remesh_plan` picks the ``(data, model)`` shape that fits a device
 count. :func:`reshard_tree` places a language model's parameter tree on
-a device mesh; it belongs to the LM substrate, which is not ported yet,
-and raises.
+a device mesh; it belongs to the LM's parallel layer (ROADMAP.md queue 1
+step 2e), which is not ported yet, and raises.
 """
 
 from __future__ import annotations
@@ -40,4 +40,4 @@ def remesh_plan(n_devices: int, *, model_parallel: int) -> Tuple[int, ...]:
 def reshard_tree(tree, mesh, spec_fn):
     """The JAX package's placement of an LM parameter tree on a mesh."""
     from repro_torch.runtime.executor import _unported
-    raise _unported("reshard_tree (the LM substrate)", "2")
+    raise _unported("reshard_tree (the LM's parallel layer)", "2e")

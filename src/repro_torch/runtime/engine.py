@@ -48,8 +48,7 @@ from repro_torch.core.geometry import CTGeometry
 from repro_torch.core.tiling import (TileSpec, make_tiles, plan_z_slabs,
                                      plan_z_units)
 from repro_torch.core.variants import get_spec
-from repro_torch.runtime.executor import (PlanExecutor, ProgramCache,
-                                          _unported)
+from repro_torch.runtime.executor import PlanExecutor, ProgramCache
 from repro_torch.runtime.planner import ReconPlan, plan_reconstruction
 
 
@@ -158,5 +157,33 @@ class TiledReconstructor:
         numpy when ``out == "host"``, else a tensor on the device."""
         return self._executor.reconstruct(projections)
 
-    def backproject_distributed(self, img_t, mats, mesh, **_):
-        raise _unported("backproject_distributed", "1c")
+    # ---- cluster composition (iFDK scale-out x tiles) --------------------
+
+    def backproject_distributed(self, img_t, mats, mesh, *,
+                                nb: Optional[int] = None,
+                                dist_variant: str = "scan",
+                                pipeline: Optional[str] = None):
+        """Compose tiles with the pod/data/model mesh of
+        ``core.distributed`` (a ``launch.mesh.Mesh``).
+
+        Each (i, j)-tile (full Z: the mesh shards i and j, slabs stay
+        whole) runs the mesh program with the tile origin as a call-time
+        argument: ONE cached program per distinct tile shape. The walk is
+        re-planned with ``nb = proj_batch = nb`` (the program's exactly-nb
+        batches; tail padded) and a host volume. ``pipeline`` ("sync" |
+        "async"; default: this engine's own) streams the tile flushes
+        through the async flusher. Returns vol_t (nx, ny, nz) on the host.
+        """
+        nb = self.recon_plan.nb if nb is None else int(nb)
+        plan = plan_reconstruction(
+            self.geom, self.variant, tile_shape=self.recon_plan.tile_shape,
+            nb=nb, proj_batch=nb, out="host",
+            interpret=self.recon_plan.interpret, device=mesh.devices[0])
+        ex = PlanExecutor(
+            self.geom, plan, cache=self._executor.cache,
+            pipeline=self._executor.pipeline if pipeline is None
+            else pipeline,
+            pipeline_depth=self._executor.pipeline_depth,
+            device=mesh.devices[0])
+        return ex.execute_distributed(img_t, mats, mesh,
+                                      dist_variant=dist_variant)

@@ -65,6 +65,12 @@ the flusher thread, ``stream.fold`` and ``stream.tail``) ride every walk
     bit for bit. ``fleet.steal``, ``fleet.failover`` and ``fleet.retire``
     instants mark what the fleet did; each worker is its own thread lane
     (``recon-fleet-{d}``).
+
+  * The mesh: :meth:`PlanExecutor.execute_distributed` composes full-Z
+    (i, j)-tiles with a pod/data/model mesh (``launch.mesh.Mesh``), one
+    program of ``core.distributed.make_distributed_bp`` per tile shape,
+    into a zeroed host volume (through the async flusher with
+    ``pipeline="async"``, bit for bit equal to sync).
 """
 
 from __future__ import annotations
@@ -86,8 +92,8 @@ from repro_torch.core import backproject as bp
 from repro_torch.core.filtering import fdk_filter_chunk
 from repro_torch.core.geometry import CTGeometry, projection_matrices
 from repro_torch.core.tiling import (
-    TileSpec, pad_projection_batch, plan_proj_chunks, tile_working_set_bytes,
-    translate_matrices,
+    TileSpec, make_tiles, pad_projection_batch, plan_proj_chunks,
+    tile_working_set_bytes, translate_matrices,
 )
 from repro_torch.core.variants import get_spec
 from repro_torch.runtime import telemetry
@@ -1591,10 +1597,61 @@ class PlanExecutor:
             t["retried"] += report.retried
             t["dead_devices"] += len(report.dead_devices)
 
-    # ---- not ported yet ---------------------------------------------------
+    # ---- cluster composition (iFDK scale-out x tiles) --------------------
 
-    def execute_distributed(self, img_t, mats, mesh, **_):
-        raise _unported("execute_distributed", "1c")
+    def execute_distributed(self, img_t, mats, mesh, *,
+                            dist_variant: str = "scan") -> np.ndarray:
+        """Compose (i, j)-tiles with the pod/data/model mesh.
+
+        Each full-Z tile is reconstructed by the mesh program of
+        ``core.distributed.make_distributed_bp`` with the tile origin as
+        a call-time argument: ONE program per distinct tile shape, kept
+        in the shared ProgramCache, so interior tiles and repeated calls
+        build nothing. Projections go through in exactly-nb batches of
+        the padded view count. ``pipeline="async"`` hands each tile's
+        slab to the :class:`_AsyncFlushQueue` (its copy on a side stream
+        on a card) while the next tile's programs run; tiles write
+        disjoint boxes of the zeroed host volume, so the flusher's add
+        equals the sequential assignment bit for bit.
+        Returns vol_t (nx, ny, nz) on the host.
+        """
+        from repro_torch.core.distributed import (_mesh_input,
+                                                  make_distributed_bp)
+
+        plan = self.plan
+        nb = plan.nb
+        home = mesh.devices[0]
+        img_p, mat_p = pad_projection_batch(_mesh_input(img_t, home),
+                                            _mesh_input(mats, home), nb)
+        _, _, chunks = plan_proj_chunks(img_p.shape[0], nb, nb)
+        nx, ny, nz = plan.vol_shape_xyz
+        ti, tj, _ = plan.tile_shape
+        vol = np.zeros((nx, ny, nz), np.float32)
+        flush = (_AsyncFlushQueue(vol, home, depth=self.pipeline_depth)
+                 if self.pipeline == "async" else None)
+        try:
+            for tile in make_tiles((nx, ny, nz), (ti, tj, nz)):
+                # geom and mesh are hashable: equal setups share a program
+                key = ("dist", dist_variant, tile.shape, nb, self.geom,
+                       mesh)
+                prog = self.cache.get_or_build(
+                    key, lambda shape=tile.shape: make_distributed_bp(
+                        self.geom, mesh, nb=nb, variant=dist_variant,
+                        vol_shape_xyz=shape)[0])
+                origin = (float(tile.i0), float(tile.j0))
+                acc = None
+                for s0, s1 in chunks:
+                    part = prog(img_p[s0:s1], mat_p[s0:s1], origin)
+                    acc = part if acc is None else acc + part
+                piece = acc[:tile.ni, :tile.nj]
+                if flush is not None:
+                    flush.put(((tile.slices, piece),))
+                else:
+                    vol[tile.slices] = piece.cpu().numpy()
+        finally:
+            if flush is not None:
+                flush.close()
+        return vol
 
 
 # --------------------------------------------------------------------------

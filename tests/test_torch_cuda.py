@@ -966,3 +966,54 @@ def test_fleet_failover_on_card(cuda):
         devices=("cuda:0",) * 2, step_hook=poison))
     with pytest.raises(RuntimeError, match="max_retries_per_step"):
         ex.reconstruct(projs)
+
+
+def test_mesh_on_card_matches_single_device_scan(cuda):
+    """The (2, 2, 2) pod/data/model mesh on ("cuda:0",) * 8 and the tiled
+    composition (async = sync bit for bit) against the card's
+    single-device scan; the CT projection source's F1 launch."""
+    from repro_torch.core.backproject import bp_subline_symmetry_scan
+    from repro_torch.core.distributed import distributed_backproject
+    from repro_torch.data import CTProjectionSource
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.engine import TiledReconstructor
+    geom = standard_geometry(n=16, n_det=24, n_proj=8)
+    src = CTProjectionSource(geom, nb=4)
+    assert kf.LAUNCHES["forward_project_kernel"] == 1
+    img_t = transpose_projections(torch.from_numpy(src.projections).cuda())
+    mats = projection_matrices(geom)
+    want = bp_subline_symmetry_scan(img_t, mats, geom.volume_shape_xyz)
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), ("cuda:0",) * 8)
+    got = distributed_backproject(img_t, mats, geom, mesh, nb=6)
+    assert got.device.type == "cuda"
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) / scale < BAR
+    eng = TiledReconstructor(geom, tile_shape=(5, 7, geom.nz), nb=4)
+    sync = eng.backproject_distributed(img_t, mats, mesh, nb=4)
+    assert np.abs(sync - want.cpu().numpy()).max() / scale < BAR
+    assert np.array_equal(sync, eng.backproject_distributed(
+        img_t, mats, mesh, nb=4, pipeline="async"))
+    assert all(v == 0 for mod in (ks, ko, kb)
+               for v in mod.LAUNCHES.values())
+
+
+def test_dense_lm_on_card_matches_cpu(cuda):
+    """A dense smoke model drawn on the CPU and copied to the card: the
+    card's teacher-forced logits, prefill and decode steps against the
+    CPU's (float32)."""
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("qwen2.5-3b")
+    cpu_model = build_model(cfg, seed=0, device="cpu")
+    card_model = build_model(cfg, seed=1, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    batch = cpu_model.dummy_batch(ShapeConfig("s", "train", 12, 2))
+    want, _ = cpu_model(batch)
+    got, _ = card_model({k: v.cuda() for k, v in batch.items()})
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    logits, cache, _ = card_model.prefill(
+        {"tokens": batch["tokens"][:, :8].cuda()}, 12)
+    for t in range(8, 12):
+        logits, cache = card_model.decode_step(
+            cache, batch["tokens"][:, t:t + 1].cuda(), t)
+        assert float((logits[:, -1].cpu() - want[:, t]).abs().max()) < 1e-4

@@ -1,8 +1,10 @@
 """repro_torch's subpackages export what the JAX package's export.
 
-Every name that ``src/repro/{core,kernels,runtime}/__init__.py`` imports
-must import from the port's counterpart, or stand on the short list of
-names the port does not carry yet. Importing the subpackages builds no
+Every name that ``src/repro/{core,kernels,runtime,configs,models,data}/
+__init__.py`` imports must import from the port's counterpart, or stand
+on the short list of names the port does not carry yet; the JAX
+``launch`` package exports nothing, so its ported modules (``mesh``,
+``serve``) are held name for name. Importing the subpackages builds no
 CUDA kernel and loads neither JAX nor the JAX package.
 """
 
@@ -18,11 +20,13 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("core", "kernels", "runtime")
-# the LM substrate's placement of a parameter tree (ROADMAP.md queue 1
-# item 2); distributed back-projection (item 1c) is not re-exported by
-# the JAX package's __init__ either
-NOT_YET_PORTED = {("runtime", "reshard_tree")}
+SUBPACKAGES = ("core", "kernels", "runtime", "configs", "models", "data",
+               "launch")
+# the LM's placement of a parameter tree (ROADMAP.md queue 1 step 2e) and
+# its token pipeline (training, step 2c)
+NOT_YET_PORTED = {("runtime", "reshard_tree"), ("data", "TokenPipeline")}
+# modules of the JAX launch package the port carries whole
+LAUNCH_MODULES = ("mesh", "serve")
 
 
 def _reference_names(sub: str):
@@ -45,8 +49,30 @@ def test_reference_exports_are_parsed():
     """The parse sees the JAX package's exports (a guard against an empty
     parametrization passing vacuously)."""
     assert len(CASES) >= 50
-    assert {"ReconService", "standard_geometry", "backproject_ref"} <= {
+    assert {"ReconService", "standard_geometry", "backproject_ref",
+            "ModelConfig", "build_model", "ByteTokenizer"} <= {
         n for _, n in CASES}
+    assert {"make_mesh", "BatchedServer"} <= {n for _, n in LAUNCH_CASES}
+
+
+def _reference_definitions(module: str):
+    """The public functions and classes a JAX package module defines."""
+    tree = ast.parse((ROOT / "src" / "repro" / f"{module}.py").read_text())
+    return [node.name for node in tree.body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef))
+            and not node.name.startswith("_")]
+
+
+LAUNCH_CASES = [(mod, name) for mod in LAUNCH_MODULES
+                for name in _reference_definitions(f"launch/{mod}")]
+
+
+@pytest.mark.parametrize("mod, name", LAUNCH_CASES,
+                         ids=[f"launch.{m}.{n}" for m, n in LAUNCH_CASES])
+def test_reference_launch_names_in_port(mod, name):
+    port = importlib.import_module(f"repro_torch.launch.{mod}")
+    assert callable(getattr(port, name, None)), \
+        f"repro_torch.launch.{mod} lacks {name}"
 
 
 @pytest.mark.parametrize("sub, name", CASES,
@@ -97,11 +123,13 @@ def test_kernel_names_are_modules_with_entry_points_in_ops():
 
 
 def test_importing_subpackages_builds_nothing():
-    """A fresh process imports the three subpackages: no kernel library
-    is built or loaded, and no JAX module comes with them."""
+    """A fresh process imports the subpackages: no kernel library is built
+    or loaded, and no JAX module comes with them."""
     code = (
         "import sys\n"
         "import repro_torch.core, repro_torch.kernels, repro_torch.runtime\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.data\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.serve\n"
         "from repro_torch.kernels import _build, backproject_subline as ks\n"
         "from repro_torch.kernels import forward_project as kf\n"
         "assert _build._loaded == {} and _build.build_log == {}\n"

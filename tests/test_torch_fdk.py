@@ -296,11 +296,10 @@ def test_iterative_methods_raise(method):
 
 
 def test_unported_variant_and_executor_paths_raise():
-    """What still raises is distributed back-projection (ROADMAP.md queue
-    1 item 1c); the fleet refuses a device-volume plan, as the JAX package
-    does; the stream and batched plans, ``open_stream`` and
-    ``execute_batch`` run (tests/test_torch_streaming.py,
-    tests/test_torch_batching.py)."""
+    """The fleet refuses a device-volume plan, as the JAX package does;
+    the stream and batched plans, ``open_stream`` and ``execute_batch``
+    run (tests/test_torch_streaming.py, tests/test_torch_batching.py), and
+    so does ``execute_distributed`` (tests/test_torch_distributed.py)."""
     from repro_torch.runtime.planner import plan_reconstruction
     _, t, p, _ = _problem("smoke")
     stream = plan_reconstruction(t, "algorithm1_mp", ingest="stream")
@@ -320,8 +319,6 @@ def test_unported_variant_and_executor_paths_raise():
     ex = PlanExecutor(t, plan, device="cpu")
     with pytest.raises(ValueError, match="chunk-major"):
         ex.open_stream()
-    with pytest.raises(NotImplementedError, match="queue 1 item 1c"):
-        ex.execute_distributed(None, None, None)
     with pytest.raises(ValueError, match="full scan"):
         ex.reconstruct(p[:-1])
     with pytest.raises(TypeError):

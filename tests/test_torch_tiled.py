@@ -375,7 +375,14 @@ def test_engine_plan_view_matches_jax():
 
 
 def test_distributed_still_raises():
+    """The engine's mesh composition runs (tests/test_torch_distributed.py
+    holds it to the JAX scan); what still raises is a batch that does not
+    divide over the mesh's "pod" axis."""
+    from repro_torch.launch.mesh import make_mesh
     c = _case()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _engine(c, "algorithm1_mp", TILES[0]).backproject_distributed(
-            c.img_t, c.mats, None)
+    eng = _engine(c, "algorithm1_mp", TILES[0])
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), ("cpu",) * 4)
+    vol = eng.backproject_distributed(c.img_t, c.mats, mesh, nb=2)
+    assert rel_rmse(vol, c.ref) < BAR
+    with pytest.raises(ValueError, match="pod=2"):
+        eng.backproject_distributed(c.img_t, c.mats, mesh, nb=3)
