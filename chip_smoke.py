@@ -127,6 +127,22 @@ prompts 24 tokens each: prefill and decode walls, tokens/s, peak memory,
 the decode step's bound (weight and cache bytes over HBM bandwidth), the
 ops a step dispatches and its device busy time under the profiler.
 
+The other LM families (phases ``[moe]`` and ``[families]``, after
+``[lm]``, before P10): deepseek-v2-lite-16b at full width (MLA with
+kv_lora 512, 64 experts top-6, 2 shared, 102400 words), in float32 at 3
+layers (the lead dense layer and 2 MoE layers, capacity factor 16 so
+nothing drops) against teacher forcing (rel 1e-3) and one MoE layer
+against the per-token sum of its top-6 experts (rel 1e-4); in bf16 at
+full depth (27 layers, 15.7e9 parameters) through ``BatchedServer`` with
+``[lm]``'s traffic: the decode step against the all-expert bound (the
+reference's dense dispatch reads every expert) and the active-only
+bound, prefill, tokens/s, peak memory, ops, idle share, and the share
+of routed assignments the capacity dropped. Then granite-moe-1b-a400m,
+recurrentgemma-9b (a unit and a trailing layer), rwkv6-3b,
+seamless-m4t-medium (frames from the seed) and internvl2-1b (256 patch
+tokens) at full width and cut depth in float32 against teacher forcing
+(rel 1e-3), the recurrent two also served for 8 steps.
+
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
@@ -3047,7 +3063,7 @@ def phase_dist(seed: int, card: str) -> int:
 
 
 # --------------------------------------------------------------------------
-# the dense LM, served
+# the LM families, served
 # --------------------------------------------------------------------------
 
 LM_ARCH = "qwen2.5-3b"
@@ -3064,32 +3080,157 @@ LM_PROMPTS = ("The projection matrix maps", "Back-projection is",
               "The subline buffer caches")
 # two waves of four and two requests, each 23 decode steps after prefill
 LM_STEPS = 2 * (LM_NEW_TOKENS - 1)
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_DIMS = (27, 2048, 16, 16, 1408, 102400)
+MOE_CUT = 3                       # the lead dense layer and 2 MoE layers
+MOE_NO_DROP_CF = 16.0             # capacity factor of the float32 checks
+MOE_SUM_BAR = 1e-4                # tests/test_moe.py's expert-sum check
+MOE_SUM_TOKENS = (2, 8)
+# the other families at full width and cut depth: (arch, config changes)
+FAMILIES = (("granite-moe-1b-a400m", dict(n_layers=2)),
+            ("recurrentgemma-9b", dict(n_layers=4)),   # a unit + a trail
+            ("rwkv6-3b", dict(n_layers=2)),
+            ("seamless-m4t-medium", dict(n_layers=2, n_enc_layers=2)),
+            ("internvl2-1b", dict(n_layers=2)))
+FAMILY_SERVED = ("recurrentgemma-9b", "rwkv6-3b")
+FAMILY_STEPS = 8                  # BatchedServer steps of a served family
 
 
-def _lm_cfg(dtype: str):
+def _lm_cfg(dtype: str, arch: str = LM_ARCH, dims=LM_DIMS, **changes):
+    """``arch``'s registry config in ``dtype``, its dims checked against
+    ``dims`` before ``changes`` (a cut depth, a capacity factor) apply."""
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype)
-    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-             cfg.d_ff, cfg.vocab_size) == LM_DIMS, f"{LM_ARCH} dims")
-    return cfg
+    cfg = get_config(arch)
+    if dims is not None:
+        require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                 cfg.d_ff, cfg.vocab_size) == dims, f"{arch} dims")
+    if "capacity_factor" in changes:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=changes.pop("capacity_factor"))
+    return dataclasses.replace(cfg, dtype=dtype, **changes)
 
 
-def phase_lm(seed: int, card: str) -> None:
-    """qwen2.5-3b at full width, weights from a seeded generator on the
-    card: in float32, prefill of LM_PREFILL tokens then decode steps
-    against the teacher-forced forward (rel max-abs LM_BAR); then in bf16,
-    ``BatchedServer`` with LM_SLOTS slots over the byte-tokenized prompts,
-    with prefill and decode walls, tokens/s, peak memory and the decode
-    step's bound (weight and cache bytes over HBM bandwidth)."""
+def _free_card() -> None:
     import gc
-    import statistics as stats
-    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_batch(cfg, seed: int) -> dict:
+    """LM_TOKENS tokens from the seed, with the frontend stub's input
+    (the encdec family's frames, the vlm family's patches)."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, S = LM_TOKENS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, LM_TOKENS,
+                                     generator=gen, device=DEVICE)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, S, cfg.d_model), generator=gen,
+                                      device=DEVICE)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(
+            (B, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+            device=DEVICE)
+    return batch
+
+
+def _lm_teacher_forcing(tag: str, cfg, seed: int, expect_params=None):
+    """Build ``cfg`` on the card from the seed, then the teacher-forced
+    forward of LM_TOKENS, a prefill of LM_PREFILL and decode steps to the
+    end, each held to the forward at rel max-abs LM_BAR. Returns the
+    model and its parameter count."""
+    import torch
+    from repro_torch.models import build_model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_params = sum(p.numel() for p in model.parameters())
+    require(expect_params is None or n_params == expect_params,
+            f"{tag}: {n_params} parameters, want {expect_params}")
+    require(all(p.device.type == DEVICE for p in model.parameters()),
+            f"{tag}: a parameter is not on the card")
+    batch = _lm_batch(cfg, seed)
+    tokens = batch["tokens"]
+    off = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    full, _ = model(batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    logits, cache, pos = model.prefill(
+        dict(batch, tokens=tokens[:, :LM_PREFILL]), off + LM_TOKENS[1])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    errs = [float((logits[:, -1] - full[:, pos - 1]).abs().max())]
+    step_ms = []
+    for t in range(LM_PREFILL, LM_TOKENS[1]):
+        t4 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tokens[:, t:t + 1], off + t)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t4))
+        errs.append(float((logits[:, -1] - full[:, off + t]).abs().max()))
+    scale = float(full.abs().max())
+    rel = max(errs) / scale
+    print(f"{tag} float32: {n_params} parameters ({4 * n_params / 1e9:.2f} "
+          f"GB), drawn on the card in {1e3 * (t1 - t0):.1f} ms; forward of "
+          f"{tuple(full.shape[:2])} tokens {1e3 * (t2 - t1):.1f} ms, prefill "
+          f"of {LM_PREFILL} {1e3 * (t3 - t2):.1f} ms, decode steps "
+          f"{', '.join(f'{m:.1f}' for m in step_ms)} ms (host clock, first "
+          f"calls); prefill and {len(step_ms)} decode steps vs teacher "
+          f"forcing: max abs {max(errs):.3e} of max |logit| {scale:.3e} "
+          f"(rel {rel:.3e})")
+    require(bool(torch.isfinite(full).all()) and rel < LM_BAR,
+            f"{tag} float32 prefill/decode disagree with teacher forcing")
+    del cache, full, logits
+    return model, n_params
+
+
+def _lm_serve(server, prompts, new_tokens: int, max_steps: int) -> dict:
+    """The example's loop over byte-tokenized ``prompts``: admit while a
+    slot is free, then one decode step; prefill and step walls (host
+    clock, synchronized), stopping when drained or after ``max_steps``."""
     import torch
     from repro_torch.data import ByteTokenizer
-    from repro_torch.launch.serve import BatchedServer, Request
-    from repro_torch.models import build_model
-    from repro_torch.models.model import count_params_analytic
+    from repro_torch.launch.serve import Request
+    tok = ByteTokenizer(server.cfg.vocab_size)
+    pending = [Request(prompt=tok.encode(p), max_new_tokens=new_tokens)
+               for p in prompts]
+    done, prefill_ms, decode_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    while (pending or any(r is not None for r in server.requests)) \
+            and len(decode_ms) < max_steps:
+        while pending:
+            t = time.perf_counter()
+            if not server.submit(pending[0]):
+                break
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t))
+            done.append(pending.pop(0))
+        t = time.perf_counter()
+        server.step()
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t))
+    return dict(done=done, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                wall=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _step_profile(server, positions) -> tuple:
+    """Where a warm decode step's time goes: the aten ops it dispatches
+    (host work), then its wall and the card's busy time under the
+    profiler; both steps write a position past every request's, after
+    serving. Returns (ops, profiled wall ms, busy ms)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -3104,135 +3245,250 @@ def phase_lm(seed: int, card: str) -> None:
             self.n += 1
             return func(*args, **(kwargs or {}))
 
-    t_phase = time.perf_counter()
-    print(f"[lm] {LM_ARCH} at full width {LM_DIMS} (layers, d_model, heads, "
-          f"kv heads, d_ff, vocab); {card}")
-
-    # ---- float32: prefill and decode against teacher forcing -----------
-    cfg = _lm_cfg("float32")
+    toks = torch.zeros((server.slots, 1), dtype=torch.long, device=DEVICE)
+    counter = OpCount()
+    with counter:
+        server._decode(server._cache, toks, positions[0])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = build_model(cfg, seed=seed, device=DEVICE)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    n_params = sum(p.numel() for p in model.parameters())
-    require(n_params == count_params_analytic(cfg) - cfg.d_model,
-            f"{n_params} parameters")
-    require(all(p.device.type == DEVICE for p in model.parameters()),
-            "a parameter is not on the card")
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size, LM_TOKENS, generator=gen,
-                           device=DEVICE)
-    full, _ = model({"tokens": tokens})
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    logits, cache, pos = model.prefill({"tokens": tokens[:, :LM_PREFILL]},
-                                       LM_TOKENS[1])
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    errs = [float((logits[:, -1] - full[:, pos - 1]).abs().max())]
-    step_ms = []
-    for t in range(LM_PREFILL, LM_TOKENS[1]):
-        t4 = time.perf_counter()
-        logits, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t4))
-        errs.append(float((logits[:, -1] - full[:, t]).abs().max()))
-    scale = float(full.abs().max())
-    rel = max(errs) / scale
-    print(f"[lm] float32: {n_params} parameters ({4 * n_params / 1e9:.2f} "
-          f"GB), drawn on the card in {1e3 * (t1 - t0):.1f} ms; forward of "
-          f"{LM_TOKENS} tokens {1e3 * (t2 - t1):.1f} ms, prefill of "
-          f"{LM_PREFILL} {1e3 * (t3 - t2):.1f} ms, decode steps "
-          f"{', '.join(f'{m:.1f}' for m in step_ms)} ms (host clock, first "
-          f"calls); prefill and {len(step_ms)} decode steps vs teacher "
-          f"forcing: max abs {max(errs):.3e} of max |logit| {scale:.3e} "
-          f"(rel {rel:.3e})")
-    require(bool(torch.isfinite(full).all()) and rel < LM_BAR,
-            "float32 prefill/decode disagree with teacher forcing")
-    del model, cache, full, logits
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # ---- bf16: the continuous-batching server ----------------------------
-    cfg = _lm_cfg("bfloat16")
-    model = build_model(cfg, seed=seed, device=DEVICE)
-    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    tok = ByteTokenizer(cfg.vocab_size)
-    server = BatchedServer(cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    pending = [Request(prompt=tok.encode(p), max_new_tokens=LM_NEW_TOKENS)
-               for p in LM_PROMPTS]
-    done, prefill_ms, decode_ms = [], [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    while pending or any(r is not None for r in server.requests):
-        while pending:
-            t = time.perf_counter()
-            if not server.submit(pending[0]):
-                break
-            torch.cuda.synchronize()
-            prefill_ms.append(1e3 * (time.perf_counter() - t))
-            done.append(pending.pop(0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        server.step()
+        server._decode(server._cache, toks, positions[1])
         torch.cuda.synchronize()
-        decode_ms.append(1e3 * (time.perf_counter() - t))
-        require(len(decode_ms) <= 4 * LM_STEPS, "the server does not drain")
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    n_tok = sum(len(r.out) for r in done)
-    require(len(done) == len(LM_PROMPTS) and len(decode_ms) == LM_STEPS
-            and all(len(r.out) == LM_NEW_TOKENS for r in done)
-            and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
-            f"served {len(done)} requests in {len(decode_ms)} steps")
+        prof_ms = 1e3 * (time.perf_counter() - t)
+    busy, _ = device_split(prof, {})
+    return counter.n, prof_ms, busy
+
+
+def _busy_text(busy: float, prof_ms: float) -> str:
+    return (f"{busy:.3f} ms, idle share {1.0 - busy / prof_ms:.4f}"
+            if busy > 0.0 else "not recorded (not measured)")
+
+
+def _first_tokens_greedy(model, done) -> None:
+    """A request's first token is its prompt's greedy next token (up to
+    bf16 noise: the teacher-forced product has another shape)."""
+    import numpy as np
+    import torch
     for r in done:
-        # a request's first token is its prompt's greedy next token (up to
-        # bf16 noise: the teacher-forced product has another shape)
         logits, _ = model({"tokens": torch.as_tensor(
             r.prompt.astype(np.int64), device=DEVICE)[None]})
         last = logits[0, -1]
         require(float(last.max() - last[r.out[0]])
                 <= 1e-2 * float(last.abs().max()),
                 "a first token is not the prompt's greedy next token")
-    cache = server._cache
-    c_bytes = sum(a.numel() * a.element_size() for a in cache.values())
-    bound = (w_bytes + c_bytes) / PEAK_BYTES * 1e3
+
+
+def _serve_full(tag: str, cfg, seed: int, model=None):
+    """bf16 ``BatchedServer`` at LM_SLOTS slots and LM_MAX_LEN over
+    LM_PROMPTS, LM_NEW_TOKENS each: walls, tokens/s, peak memory, each
+    request's first token checked. Returns (model, server, served, step
+    median ms, weight bytes, cache bytes)."""
+    import statistics as stats
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import build_model
+    model = build_model(cfg, seed=seed, device=DEVICE) if model is None \
+        else model
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    server = BatchedServer(cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    served = _lm_serve(server, LM_PROMPTS, LM_NEW_TOKENS, 4 * LM_STEPS)
+    done, decode_ms = served["done"], served["decode_ms"]
+    n_tok = sum(len(r.out) for r in done)
+    require(len(done) == len(LM_PROMPTS) and len(decode_ms) == LM_STEPS
+            and all(len(r.out) == LM_NEW_TOKENS for r in done)
+            and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+            f"{tag}: served {len(done)} requests in {len(decode_ms)} steps")
+    _first_tokens_greedy(model, done)
+    c_bytes = _tree_bytes(server._cache)
     steady = stats.median(decode_ms[1:])
-    # where a warm decode step's time goes: the ops it dispatches (host
-    # work) and the card's busy time under the profiler; both steps write
-    # a position past every request's, after serving
-    toks = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=DEVICE)
-    counter = OpCount()
-    with counter:
-        server._decode(cache, toks, LM_MAX_LEN - 2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        server._decode(cache, toks, LM_MAX_LEN - 1)
-        torch.cuda.synchronize()
-        prof_ms = 1e3 * (time.perf_counter() - t)
-    busy, _ = device_split(prof, {})
-    print(f"[lm] bf16 BatchedServer, {LM_SLOTS} slots, max_len "
+    print(f"{tag} bf16 BatchedServer, {LM_SLOTS} slots, max_len "
           f"{LM_MAX_LEN}: {len(done)} requests x {LM_NEW_TOKENS} tokens in "
-          f"{len(decode_ms)} decode steps, {1e3 * wall:.1f} ms (host clock), "
-          f"{n_tok / wall:.1f} tokens/s; prefill a request median "
-          f"{stats.median(prefill_ms):.3f} ms (first {prefill_ms[0]:.3f}); "
-          f"decode step median {steady:.3f} ms after the first "
-          f"({decode_ms[0]:.3f}); peak memory {peak / 2**30:.3f} GiB")
+          f"{len(decode_ms)} decode steps, {1e3 * served['wall']:.1f} ms "
+          f"(host clock), {n_tok / served['wall']:.1f} tokens/s; prefill a "
+          f"request median {stats.median(served['prefill_ms']):.3f} ms "
+          f"(first {served['prefill_ms'][0]:.3f}); decode step median "
+          f"{steady:.3f} ms after the first ({decode_ms[0]:.3f}); peak "
+          f"memory {served['peak'] / 2**30:.3f} GiB")
+    return model, server, served, steady, w_bytes, c_bytes
+
+
+def phase_lm(seed: int, card: str) -> None:
+    """qwen2.5-3b at full width, weights from a seeded generator on the
+    card: in float32, prefill of LM_PREFILL tokens then decode steps
+    against the teacher-forced forward (rel max-abs LM_BAR); then in bf16,
+    ``BatchedServer`` with LM_SLOTS slots over the byte-tokenized prompts,
+    with prefill and decode walls, tokens/s, peak memory and the decode
+    step's bound (weight and cache bytes over HBM bandwidth)."""
+    from repro_torch.models.model import count_params_analytic
+
+    t_phase = time.perf_counter()
+    print(f"[lm] {LM_ARCH} at full width {LM_DIMS} (layers, d_model, heads, "
+          f"kv heads, d_ff, vocab); {card}")
+    cfg = _lm_cfg("float32")
+    model, _ = _lm_teacher_forcing(
+        "[lm]", cfg, seed, count_params_analytic(cfg) - cfg.d_model)
+    del model
+    _free_card()
+
+    cfg = _lm_cfg("bfloat16")
+    model, server, _, steady, w_bytes, c_bytes = _serve_full("[lm]", cfg,
+                                                             seed)
+    ops, prof_ms, busy = _step_profile(server, (LM_MAX_LEN - 2,
+                                                LM_MAX_LEN - 1))
+    bound = (w_bytes + c_bytes) / PEAK_BYTES * 1e3
     print(f"[lm] decode step bound: weights {w_bytes / 1e9:.3f} GB + cache "
           f"{c_bytes / 1e9:.4f} GB over 3.35 TB/s = {bound:.3f} ms (bytes); "
           f"the step at {bound / steady:.4f} of it")
-    print(f"[lm] a warm bf16 decode step dispatches {counter.n} ops "
-          f"({steady / counter.n * 1e3:.1f} us of the median step each); "
-          f"under the profiler: wall {prof_ms:.3f} ms, device busy "
-          + (f"{busy:.3f} ms, idle share {1.0 - busy / prof_ms:.4f}"
-             if busy > 0.0 else "not recorded (not measured)"))
+    print(f"[lm] a warm bf16 decode step dispatches {ops} ops "
+          f"({steady / ops * 1e3:.1f} us of the median step each); under "
+          f"the profiler: wall {prof_ms:.3f} ms, device busy "
+          + _busy_text(busy, prof_ms))
     print(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
-    del server, model, cache
-    gc.collect()
-    torch.cuda.empty_cache()
+    del server, model
+    _free_card()
+
+
+def _expert_sum(moe, x, top_k: int):
+    """The routed layer by its definition: each token's top-k experts'
+    SwiGLU outputs, weighted by their renormalized router probabilities,
+    plus the shared experts; float32, token by token."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.models.moe import _top_k
+    xt = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    probs = torch.softmax(xt @ moe.router.float(), dim=-1)
+    sh = moe.shared
+    out = torch.zeros_like(xt)
+    for t in range(xt.shape[0]):
+        ws, es = _top_k(probs[t], top_k)
+        ws = ws / ws.sum()
+        for w, e in zip(ws, es.tolist()):
+            h = F.silu(xt[t] @ moe.wi_gate[e]) * (xt[t] @ moe.wi_up[e])
+            out[t] += w * (h @ moe.wo[e])
+        for n in range(sh.wo.shape[0]):
+            h = F.silu(xt[t] @ sh.wi_gate[n]) * (xt[t] @ sh.wi_up[n])
+            out[t] += h @ sh.wo[n]
+    return out.reshape(x.shape)
+
+
+def phase_moe(seed: int, card: str) -> None:
+    """deepseek-v2-lite-16b at full width (MLA with kv_lora 512, 64
+    experts top-6, 2 shared, 102400 words), weights from a seeded
+    generator on the card. (a) float32 at MOE_CUT layers (the lead dense
+    layer and two MoE layers) with capacity factor MOE_NO_DROP_CF, so no
+    assignment drops: prefill and decode against teacher forcing (rel
+    LM_BAR), and one MoE layer against the per-token sum of its top-k
+    experts (rel MOE_SUM_BAR). (b) bf16 at full depth (27 layers) with
+    the config's capacity factor, through ``BatchedServer`` with [lm]'s
+    traffic: the decode step against the all-expert bound (the dense
+    dispatch reads every expert) and the active-only bound, prefill,
+    tokens/s, peak memory, ops a step, idle share, and the share of
+    routed assignments the capacity dropped in the served steps."""
+    import torch
+    from repro_torch.models.model import count_params_analytic
+    from repro_torch.models.moe import moe_mlp
+
+    t_phase = time.perf_counter()
+    print(f"[moe] {MOE_ARCH} at full width {MOE_DIMS} (layers, d_model, "
+          f"heads, kv heads, d_ff expert, vocab), MLA, 64 experts top-6, 2 "
+          f"shared; {card}")
+    cfg = _lm_cfg("float32", MOE_ARCH, MOE_DIMS, n_layers=MOE_CUT,
+                  capacity_factor=MOE_NO_DROP_CF)
+    model, _ = _lm_teacher_forcing(
+        "[moe]", cfg, seed, count_params_analytic(cfg) - cfg.d_model)
+    moe = model.layers[0].moe
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    x = torch.randn(MOE_SUM_TOKENS + (cfg.d_model,), generator=gen,
+                    device=DEVICE)
+    stats = {}
+    got, _ = moe_mlp(moe, x, cfg, stats=stats)
+    want = _expert_sum(moe, x, cfg.moe.top_k)
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"[moe] float32 MoE layer on {MOE_SUM_TOKENS} tokens vs the "
+          f"per-token sum of its top-6 experts and the shared ones: rel "
+          f"{rel:.3e} (bar {MOE_SUM_BAR:g}); dropped "
+          f"{int(stats['dropped'])} of {stats['assigned']} assignments")
+    require(rel < MOE_SUM_BAR and int(stats["dropped"]) == 0,
+            "the MoE layer disagrees with its expert sum")
+    del model, moe, x, got, want
+    _free_card()
+
+    cfg = _lm_cfg("bfloat16", MOE_ARCH, MOE_DIMS)
+    from repro_torch.models import build_model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == count_params_analytic(cfg) - cfg.d_model,
+            f"[moe] {n_params} parameters at full depth")
+    print(f"[moe] bf16 at full depth: {n_params} parameters (analytic "
+          f"{count_params_analytic(cfg)}, less the final RMSNorm's absent "
+          f"bias), drawn on the card in {time.perf_counter() - t0:.1f} s")
+    model.moe_stats = {}
+    model, server, served, steady, w_bytes, c_bytes = _serve_full(
+        "[moe]", cfg, seed, model)
+    drops, model.moe_stats = model.moe_stats, None   # the served steps'
+    dropped = int(drops["dropped"])
+    share = dropped / drops["assigned"]
+    ops, prof_ms, busy = _step_profile(server, (LM_MAX_LEN - 2,
+                                                LM_MAX_LEN - 1))
+    bound = (w_bytes + c_bytes) / PEAK_BYTES * 1e3
+    active = count_params_analytic(cfg, active_only=True)
+    a_bound = (active * 2 + c_bytes) / PEAK_BYTES * 1e3
+    print(f"[moe] decode step bound, all experts (the dense dispatch reads "
+          f"every expert's weights): {w_bytes / 1e9:.3f} GB + cache "
+          f"{c_bytes / 1e9:.4f} GB over 3.35 TB/s = {bound:.3f} ms, the "
+          f"step at {bound / steady:.4f} of it; active only ({active} "
+          f"parameters, {2 * active / 1e9:.3f} GB, what a gathered dispatch "
+          f"reads) = {a_bound:.3f} ms, the step at {a_bound / steady:.4f}")
+    print(f"[moe] a warm bf16 decode step dispatches {ops} ops "
+          f"({steady / ops * 1e3:.1f} us of the median step each); under "
+          f"the profiler: wall {prof_ms:.3f} ms, device busy "
+          + _busy_text(busy, prof_ms))
+    print(f"[moe] capacity factor {cfg.moe.capacity_factor}: the served "
+          f"decode steps dropped {dropped} of {drops['assigned']} routed "
+          f"assignments ({share:.4f})")
+    print(f"[moe] phase {time.perf_counter() - t_phase:.1f} s")
+    del server, model, served
+    _free_card()
+
+
+def phase_families(seed: int, card: str) -> None:
+    """Each other family's config at full width and cut depth, float32,
+    weights from the seed on the card: prefill and decode against teacher
+    forcing (rel LM_BAR); recurrentgemma-9b and rwkv6-3b also serve
+    FAMILY_STEPS ``BatchedServer`` steps (4 slots)."""
+    import statistics as stats
+    from repro_torch.launch.serve import BatchedServer
+
+    t_phase = time.perf_counter()
+    print(f"[families] full width, cut depth, float32; {card}")
+    for arch, changes in FAMILIES:
+        t0 = time.perf_counter()
+        if arch.startswith("granite"):
+            changes = dict(changes, capacity_factor=MOE_NO_DROP_CF)
+        cfg = _lm_cfg("float32", arch, None, **changes)
+        tag = f"[families] {arch} ({cfg.family}, {changes})"
+        model, _ = _lm_teacher_forcing(tag, cfg, seed)
+        if arch in FAMILY_SERVED:
+            server = BatchedServer(cfg, model, slots=LM_SLOTS,
+                                   max_len=LM_MAX_LEN)
+            served = _lm_serve(server, LM_PROMPTS[:LM_SLOTS], LM_MAX_LEN,
+                               FAMILY_STEPS)
+            ms = served["decode_ms"]
+            require(len(ms) == FAMILY_STEPS and all(
+                len(r.out) == FAMILY_STEPS + 1 for r in served["done"]),
+                f"{tag}: served {len(ms)} steps")
+            print(f"{tag} BatchedServer, {LM_SLOTS} slots: {len(ms)} decode "
+                  f"steps, median {stats.median(ms[1:]):.3f} ms after the "
+                  f"first ({ms[0]:.3f}); prefill a request median "
+                  f"{stats.median(served['prefill_ms']):.3f} ms (host clock)")
+            del server, served
+        del model
+        _free_card()
+        print(f"{tag} {time.perf_counter() - t0:.1f} s")
+    print(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -3282,6 +3538,9 @@ def main(argv=None) -> int:
     # After every earlier phase, which keep the process state they had
     rows[F1]["launches_source"] = phase_dist(args.seed, card)
     phase_lm(args.seed, card)
+    # the other LM families: the MoE/MLA model served, then the rest
+    phase_moe(args.seed, card)
+    phase_families(args.seed, card)
     for name, row in rows.items():
         row["launches_batch"] = (batch.get(name, 0) + stream.get(name, 0)
                                  + service.get(name, 0))

@@ -57,26 +57,37 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
     return out
 
 
+# the JAX package's stacked subtrees: every leaf under one of these
+# carries a leading layer (or unit) axis, which the port unstacks into
+# ``{prefix}.{index}.{rest}``
+STACKED = ("layers", "lead_layers", "units", "trail", "enc_layers",
+           "dec_layers")
+
+
 def lm_params_from_reference(model, tree: Mapping):
     """Load another package's LM parameter tree into ``model`` (a module
     from ``repro_torch.models.build_model``) and return the model.
 
-    ``tree`` is the JAX package's parameter pytree as nested dicts of
-    numpy arrays: ``embed``, ``ln_f``, ``layers`` (every leaf with the
-    stacked leading layer axis) and, untied, ``unembed``. Weights are
-    stored ``(d_in, d_out)`` on both sides, so nothing is transposed.
-    Values pass through float32 (exact for float32, bfloat16 and
-    float16) and land in each parameter's dtype on its device. Raises
-    ``ValueError`` on a missing or unknown leaf, or a shape that does
-    not match.
+    ``tree`` is the JAX package's parameter pytree, of any family, as
+    nested dicts of numpy arrays: ``embed``, ``ln_f``, ``layers`` and,
+    untied, ``unembed``; DeepSeek-V2's ``lead_layers``, routed and shared
+    experts (``moe``, ``moe.shared``) and MLA projections; the hybrid
+    ``units`` and ``trail``; RWKV's ``ln_in`` and time/channel mixes; the
+    ``enc_layers``/``dec_layers`` with ``ln_enc``/``ln_dec``; the vlm
+    projector ``vlm``. Every leaf under a subtree of ``STACKED`` has the
+    reference's leading layer axis. Weights are stored ``(d_in, d_out)``
+    on both sides, so nothing is transposed. Values pass through float32
+    (exact for float32, bfloat16 and float16) and land in each
+    parameter's dtype on its device. Raises ``ValueError`` on a missing
+    or unknown leaf, or a shape that does not match.
     """
     flat = {}
     for name, arr in _flatten(tree).items():
         arr = np.array(arr, np.float32)    # a writable copy
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
+        prefix, _, rest = name.partition(".")
+        if prefix in STACKED and rest:
             for layer in range(arr.shape[0]):
-                flat[f"layers.{layer}.{rest}"] = arr[layer]
+                flat[f"{prefix}.{layer}.{rest}"] = arr[layer]
         else:
             flat[name] = arr
     params = dict(model.named_parameters())

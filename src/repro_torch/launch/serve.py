@@ -3,7 +3,12 @@
 ``BatchedServer`` is the JAX package's host-scale server with slot-based
 continuous batching (examples/serve_lm_torch.py), ported as it behaves:
 the first prefill's cache is copied into every slot, and every decode
-step advances all active slots at one shared position. The sharded
+step advances all active slots at one shared position. It serves every
+family whose prefill takes tokens alone (dense, moe, hybrid, ssm): a
+decode state is a nested dict of tensors, each with its batch on axis
+1. As in the reference, it passes only ``{"tokens": ...}`` to
+``prefill``, so an encdec model (which needs ``"frames"``) or a vlm
+model (``"patches"``) raises ``KeyError`` at admission. The sharded
 decode step (``shard_decode_step``) belongs to the LM's parallel layer
 (ROADMAP.md queue 1 step 2e).
 """
@@ -37,6 +42,13 @@ def shard_decode_step(model, mesh, abstract_params, batch: int,
     """The JAX package's sharded decode step."""
     from repro_torch.runtime.executor import _unported
     raise _unported("shard_decode_step (the LM's parallel layer)", "2e")
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 # --------------------------------------------------------------------------
@@ -83,11 +95,12 @@ class BatchedServer:
                                                  self.max_len)
         if self._cache is None:
             # the first prefill's cache fills every slot
-            self._cache = {k: torch.cat([a] * self.slots, dim=1)
-                           for k, a in cache1.items()}
+            self._cache = _tree_map(
+                lambda a: torch.cat([a] * self.slots, dim=1), cache1)
         else:
-            for k, full in self._cache.items():
-                full[:, slot:slot + 1] = cache1[k].to(full.dtype)
+            def put(full, one):
+                full[:, slot:slot + 1] = one.to(full.dtype)
+            _tree_map(put, self._cache, cache1)
         self.pos[slot] = int(pos)
         req.out.append(int(torch.argmax(logits[0, -1])))
 

@@ -1,4 +1,5 @@
-"""Attention: GQA (full and sliding window), prefill and decode paths.
+"""Attention: GQA (full and sliding window), cross attention and MLA,
+prefill and decode paths.
 
 Prefill runs a flash-style chunked attention: a loop over KV chunks with
 an online softmax, so the S^2 score matrix is never materialized. It is
@@ -8,10 +9,10 @@ accumulates in another order). Decode is one read over the cache (full)
 or over a ring buffer (sliding window); the cache is contracted with
 float32 results, by upcasting both operands: a bf16 x bf16 product is
 exact in float32, so this is the reference's ``preferred_element_type``
-contraction.
+contraction. MLA decode keeps DeepSeek's weight absorption: attention
+runs in the kv_lora latent space and the cache holds only (c_kv, k_rope).
 
-The flash backward (training, ROADMAP.md queue 1 step 2c) and MLA
-(step 2a) are not ported.
+The flash backward (training, ROADMAP.md queue 1 step 2c) is not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import _param, apply_rope, dense_init
+from .layers import Norm, _param, apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 
@@ -250,3 +251,160 @@ def gqa_decode(p: GQA, x, cfg, pos, k_cache, v_cache, inv_freq,
         o = decode_attention_window(q, k_cache, v_cache, pos, window)
     out = o.reshape(B, 1, -1) @ p.wo
     return out, (k_cache, v_cache)
+
+
+# --------------------------------------------------------------------------
+# cross attention (encoder-decoder)
+# --------------------------------------------------------------------------
+
+class Cross(nn.Module):
+    """Cross-attention weights ``wq``, ``wk``, ``wv``, ``wo``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+            cfg.head_dim_
+        dt = cfg.np_dtype
+        self.wq = _param((d, H * hd), dt, device)
+        self.wk = _param((d, KVH * hd), dt, device)
+        self.wv = _param((d, KVH * hd), dt, device)
+        self.wo = _param((H * hd, d), dt, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            for name in ("wq", "wk", "wv", "wo"):
+                w = getattr(self, name)
+                w.copy_(dense_init(gen, w.shape[0], w.shape[1], w.dtype))
+
+
+def init_cross(gen: Optional[torch.Generator], cfg, device=None) -> Cross:
+    p = Cross(cfg, device)
+    if gen is not None:
+        p.reset_parameters(gen)
+    return p
+
+
+def cross_attention(p: Cross, x, enc_k, enc_v, cfg):
+    """x: (B,Sd,d); enc_k/enc_v: (B,Se,KVH,hd) from ``cross_kv``."""
+    B, Sd, _ = x.shape
+    q = (x @ p.wq).reshape(B, Sd, cfg.n_heads, cfg.head_dim_)
+    o = flash_attention(q, enc_k, enc_v, causal=False, chunk=cfg.attn_chunk)
+    return o.reshape(B, Sd, -1) @ p.wo
+
+
+def cross_kv(p: Cross, enc_out, cfg):
+    B, Se, _ = enc_out.shape
+    KVH, hd = cfg.n_kv_heads, cfg.head_dim_
+    k = (enc_out @ p.wk).reshape(B, Se, KVH, hd)
+    v = (enc_out @ p.wv).reshape(B, Se, KVH, hd)
+    return k, v
+
+
+# --------------------------------------------------------------------------
+# MLA: Multi-head Latent Attention (DeepSeek-V2)
+# --------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """Latent-attention weights: ``wq`` (d, H (dn + dr)), ``w_dkv``
+    (d, L), ``kv_norm`` (RMSNorm over L), ``w_uk`` (L, H dn), ``w_uv``
+    (L, H dv), ``w_kr`` (d, dr), ``wo`` (H dv, d)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        m = cfg.mla
+        d, H, dt = cfg.d_model, cfg.n_heads, cfg.np_dtype
+        dn, dr, dv, L = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, \
+            m.kv_lora_rank
+        self.wq = _param((d, H * (dn + dr)), dt, device)
+        self.w_dkv = _param((d, L), dt, device)
+        self.kv_norm = Norm("rmsnorm", L, dt, device)
+        self.w_uk = _param((L, H * dn), dt, device)
+        self.w_uv = _param((L, H * dv), dt, device)
+        self.w_kr = _param((d, dr), dt, device)
+        self.wo = _param((H * dv, d), dt, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            for name in ("wq", "w_dkv", "w_uk", "w_uv", "w_kr", "wo"):
+                w = getattr(self, name)
+                w.copy_(dense_init(gen, w.shape[0], w.shape[1], w.dtype))
+            self.kv_norm.reset_parameters()
+
+
+def init_mla(gen: Optional[torch.Generator], cfg, device=None) -> MLA:
+    p = MLA(cfg, device)
+    if gen is not None:
+        p.reset_parameters(gen)
+    return p
+
+
+def _mla_q(p: MLA, x, cfg, positions, inv_freq_r):
+    m = cfg.mla
+    B, S, _ = x.shape
+    dn, dr = m.qk_nope_dim, m.qk_rope_dim
+    q = (x @ p.wq).reshape(B, S, cfg.n_heads, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, inv_freq_r)
+
+
+def mla_prefill(p: MLA, x, cfg, positions, inv_freq_r):
+    """Returns (out, cache=(c_kv (B,S,L), k_rope (B,S,dr))): the latent
+    cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, inv_freq_r)
+    c = rms_norm(p.kv_norm.scale, x @ p.w_dkv)               # (B,S,L)
+    k_nope = (c @ p.w_uk).reshape(B, S, H, dn)
+    vv = (c @ p.w_uv).reshape(B, S, H, dv)
+    k_r = apply_rope((x @ p.w_kr).reshape(B, S, 1, dr), positions,
+                     inv_freq_r)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_r.expand(B, S, H, dr)], dim=-1)
+    o = flash_attention(q, k, vv, causal=True, chunk=cfg.attn_chunk)
+    out = o.reshape(B, S, -1) @ p.wo
+    return out, (c, k_r[:, :, 0, :])
+
+
+def mla_decode(p: MLA, x, cfg, pos, c_cache, kr_cache, inv_freq_r):
+    """Weight-absorbed MLA decode: attention in the latent space.
+
+    x: (B,1,d); c_cache: (B,S,L); kr_cache: (B,S,dr). Writes this
+    token's latent and rope key at ``pos`` IN PLACE. Score_t = q_abs .
+    c_t + q_r . kr_t, with q_abs = q_nope absorbed through w_uk; the
+    output is re-expanded through w_uv. Cache contractions round their
+    query operand to the cache's dtype and run in float32, as the
+    reference's ``preferred_element_type`` ones.
+    """
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    dn, dr, dv, L = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, \
+        m.kv_lora_rank
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, inv_freq_r)  # (B,1,H,*)
+    c_new = rms_norm(p.kv_norm.scale, x @ p.w_dkv)             # (B,1,L)
+    kr_new = apply_rope((x @ p.w_kr).reshape(B, 1, 1, dr), positions,
+                        inv_freq_r)[:, :, 0, :]
+    c_cache[:, pos] = c_new[:, 0].to(c_cache.dtype)
+    kr_cache[:, pos] = kr_new[:, 0].to(kr_cache.dtype)
+    w_uk = p.w_uk.reshape(L, H, dn)
+    q_abs = torch.einsum("bhd,lhd->bhl", _f32(q_nope[:, 0]), _f32(w_uk))
+    scale = 1.0 / math.sqrt(dn + dr)
+    s_lat = torch.einsum("bhl,bsl->bhs", _f32(q_abs.to(c_cache.dtype)),
+                         _f32(c_cache))
+    s_rope = torch.einsum("bhd,bsd->bhs",
+                          _f32(q_rope[:, 0].to(kr_cache.dtype)),
+                          _f32(kr_cache))
+    s = (s_lat + s_rope) * scale
+    S = c_cache.shape[1]
+    valid = torch.arange(S, device=x.device)[None, None, :] <= pos
+    s = torch.where(valid, s, NEG_INF)
+    att = torch.softmax(s, dim=-1)
+    z = torch.einsum("bhs,bsl->bhl", _f32(att.to(c_cache.dtype)),
+                     _f32(c_cache))
+    w_uv = _f32(p.w_uv.reshape(L, H, dv))
+    o = torch.einsum("bhl,lhd->bhd", z, w_uv)                  # (B,H,dv)
+    out = o.reshape(B, 1, H * dv).to(x.dtype) @ p.wo
+    return out, (c_cache, kr_cache)

@@ -694,7 +694,11 @@ class ReconService:
         ex.warm()
         cap = self._effective_cap(config)
         if cap > 1 and ex.supports_request_batching:
-            ex.warm_batch(cap)        # the first formed batch builds nothing
+            # every batch size the former can ship, partial ones too, so
+            # no formed batch builds a program (the reference warms only
+            # rb = cap)
+            for rb in range(2, cap + 1):
+                ex.warm_batch(rb)
         return ex, cap
 
     def _bucket(self, geom: CTGeometry, plan: ReconPlan,

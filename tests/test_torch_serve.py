@@ -4,8 +4,11 @@
 the JAX ``init_params`` carried into the port, served by both packages'
 ``BatchedServer`` with 4 slots: 6 byte-tokenized prompts, 24 new tokens
 each, admitted as slots free up. The port's greedy token lists equal the
-JAX server's exactly. The byte tokenizer encodes and decodes as the JAX
-one does.
+JAX server's exactly. The same traffic through the moe (granite-moe,
+deepseek-v2-lite with MLA), hybrid (recurrentgemma) and ssm (rwkv6) smoke
+configs gives the JAX server's tokens too; the encdec and vlm models fail
+at admission as the JAX server does (it passes tokens alone to
+``prefill``). The byte tokenizer encodes and decodes as the JAX one does.
 """
 
 import numpy as np
@@ -15,12 +18,14 @@ torch = pytest.importorskip("torch")
 
 import jax
 
+from repro import configs as jconfigs
 from repro.configs import ModelConfig as JModelConfig
 from repro.data import ByteTokenizer as JByteTokenizer
 from repro.launch.serve import BatchedServer as JServer
 from repro.launch.serve import Request as JRequest
 from repro.models import build_model as j_build
 
+from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.configs import ModelConfig
 from repro_torch.data import ByteTokenizer
@@ -72,6 +77,61 @@ def served():
         for p in PROMPTS])
     return dict(jdone=jdone, jsteps=jsteps, done=done, steps=steps,
                 server=server)
+
+
+def _serve_both(jcfg, cfg, new_tokens=NEW_TOKENS):
+    """The JAX server and the port's (carrying the JAX tree) over the
+    same prompts: (JAX requests, port requests, port server)."""
+    jp = j_build(jcfg).init(0)
+    jtok = JByteTokenizer(jcfg.vocab_size)
+    jdone, _ = _serve(
+        JServer(jcfg, jp, slots=SLOTS, max_len=MAX_LEN),
+        [JRequest(prompt=jtok.encode(p), max_new_tokens=new_tokens)
+         for p in PROMPTS])
+    model = convert.lm_params_from_reference(
+        build_model(cfg, device="cpu"),
+        jax.tree_util.tree_map(np.asarray, jp))
+    tok = ByteTokenizer(cfg.vocab_size)
+    server = tserve.BatchedServer(cfg, model, slots=SLOTS, max_len=MAX_LEN)
+    done, _ = _serve(server, [
+        tserve.Request(prompt=tok.encode(p), max_new_tokens=new_tokens)
+        for p in PROMPTS])
+    return jdone, done, server
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b",
+                                  "recurrentgemma-9b", "rwkv6-3b"])
+def test_family_tokens_equal_the_jax_server(arch):
+    """Greedy tokens equal the JAX server's; every slot's state rows are
+    the batch axis (1) of each leaf of the decode state."""
+    jdone, done, server = _serve_both(jconfigs.get_smoke_config(arch),
+                                      tconfigs.get_smoke_config(arch), 12)
+    assert [r.out for r in done] == [r.out for r in jdone]
+    assert all(len(r.out) == 12 for r in done)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+    assert all(a.shape[1] == SLOTS for a in leaves(server._cache))
+
+
+@pytest.mark.parametrize("arch,key", [("seamless-m4t-medium", "frames"),
+                                      ("internvl2-1b", "patches")])
+def test_frontend_families_fail_as_the_jax_server(arch, key):
+    """Both servers pass ``{"tokens": ...}`` alone to ``prefill``: the
+    encdec model needs frames and the vlm model patches, so admission
+    raises ``KeyError`` naming the missing input, in both packages."""
+    jcfg = jconfigs.get_smoke_config(arch)
+    jserver = JServer(jcfg, j_build(jcfg).init(0), slots=2, max_len=32)
+    prompt = JByteTokenizer(jcfg.vocab_size).encode(PROMPTS[0])
+    with pytest.raises(KeyError, match=key):
+        jserver.submit(JRequest(prompt=prompt, max_new_tokens=4))
+    cfg = tconfigs.get_smoke_config(arch)
+    server = tserve.BatchedServer(cfg, build_model(cfg, device="cpu"),
+                                  slots=2, max_len=32)
+    with pytest.raises(KeyError, match=key):
+        server.submit(tserve.Request(prompt=prompt, max_new_tokens=4))
 
 
 def test_tokens_equal_the_jax_server(served):

@@ -120,6 +120,29 @@ def test_warmup_precompiles_everything(setup):
         assert (b.requests, b.hits, b.programs_built) == (1, 1, warmed)
 
 
+def test_warmup_builds_every_partial_batch(setup):
+    """After warmup, a formed batch smaller than ``max_batch`` builds no
+    program: the service warms every rb in 2..cap (the reference warms
+    only cap). Three requests wait for a fourth until the third, of
+    priority 1, ships the batch of three; its volumes equal solo runs."""
+    _, t, projs = setup
+    reqs = [projs * (1.0 + 0.5 * i) for i in range(3)]
+    with _svc(max_batch=4, max_wait_ms=3_600_000.0) as svc:
+        warmed = svc.warmup([t], **OPTS).cache["misses"]
+        bucket = next(iter(svc._buckets.values()))
+        assert bucket.executor.supports_request_batching
+        futs = [svc.submit(p, t, **OPTS) for p in reqs[:2]]
+        futs.append(svc.submit(reqs[2], t, priority=1, **OPTS))
+        out = [_np(f.result(timeout=120)) for f in futs]
+        stats = svc.stats()
+    assert stats.cache["misses"] == warmed       # no build in the burst
+    b = stats.buckets[0]
+    assert (b.dispatches, b.completed, b.programs_built) == (1, 3, warmed)
+    solo = PlanExecutor(t, bucket.plan, device="cpu")
+    for got, p in zip(out, reqs):
+        assert np.array_equal(got, _np(solo.reconstruct(p)))
+
+
 def test_mixed_shapes_do_not_evict(setup):
     """Interleaved shape classes keep their buckets AND their programs:
     re-requesting the first shape builds nothing."""
