@@ -143,6 +143,24 @@ seamless-m4t-medium (frames from the seed) and internvl2-1b (256 patch
 tokens) at full width and cut depth in float32 against teacher forcing
 (rel 1e-3), the recurrent two also served for 8 steps.
 
+The LM trained (phase ``[train]``, after ``[families]``, before P10; no
+kernel of its own): (a) the flash backward (``attention._Flash``) in
+float32 at qwen2.5-3b's head shapes (16 heads, 2 KV heads, D 128, S 256;
+chunk 64 and 1024, causal and a window of 100) within 5e-5 of autograd
+through ``attention_ref``; (b) qwen2.5-3b at full width, 2 layers,
+float32: loss and grads rematerialized against not (rel 1e-6 per
+parameter), a microbatch=2 step's loss against the full batch's (rel
+1e-4), the loss at init in (0.5 ln V, 2 ln V); (c)
+``launch.train.train`` at the reference's smoke configs: qwen2.5-3b's
+loss falls over 30 steps, stablelm-3b's 20 straight steps equal 10 +
+resume + 10 (atol 2e-5), checkpoints in a temporary directory; (d)
+qwen2.5-3b at full width and depth in bf16 (3,085,938,688 parameters,
+remat "nothing"): 8 ``make_train_step`` steps of 4x256 ``TokenPipeline``
+tokens with finite losses and norms, step ms, tokens/s, peak memory,
+ops a step, device busy and idle share, device time by kernel name, and
+the step's bound (8 N T FLOPs over 989 TFLOP/s plus 26 B a parameter of
+AdamW over 3.35 TB/s). No kernel of K1-K6 or F1 launches in the phase.
+
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
@@ -3491,6 +3509,303 @@ def phase_families(seed: int, card: str) -> None:
     print(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# the LM trained
+# --------------------------------------------------------------------------
+
+# (a) the flash backward at qwen2.5-3b's head shapes: (chunk, window)
+TRAIN_ATTN = dict(B=2, S=256, H=16, KVH=2, D=128)
+TRAIN_ATTN_CASES = ((64, None), (1024, None), (64, 100), (1024, 100))
+TRAIN_ATTN_BAR = 5e-5             # tests/test_attention.py, unit-scale inputs
+# (b) qwen2.5-3b at full width, TRAIN_CUT layers, float32
+TRAIN_CUT = 2
+TRAIN_TOKENS = (2, 256)           # batch, sequence of (b)
+TRAIN_REMAT_BAR = 1e-6            # rel max-abs, per parameter
+TRAIN_MICRO_BAR = 1e-4            # tests/test_train_integration.py
+# (c) launch.train.train at the reference's smoke configs
+TRAIN_SMOKE_STEPS = 30
+TRAIN_RESUME_ATOL = 2e-5
+# (d) qwen2.5-3b at full width and depth, bf16
+TRAIN_FULL = (4, 256)             # batch, sequence
+TRAIN_FULL_STEPS = 8
+TRAIN_FULL_WARM = 2               # steps left out of the median
+PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16
+# kernel-name keys of the profiled step's device time (cuBLAS GEMMs are
+# "nvjet"/"gemm" kernels on this toolkit)
+TRAIN_KERNEL_GROUPS = {"nvjet": "nvjet", "gemm": "gemm",
+                       "elementwise": "elementwise", "reduce": "reduce",
+                       "index": "index", "softmax": "softmax"}
+# the optimizer's bytes a parameter: bf16 params read and written (4),
+# bf16 grads read by the norm, the clip and the update and written by the
+# clip (8), float32 m and v read and written (16)
+OPT_BYTES_PER_PARAM = 26
+
+
+def _grads_rel(a: dict, b: dict) -> float:
+    """The largest per-parameter max-abs difference over max |b|."""
+    return max(float((a[n] - b[n]).abs().max())
+               / max(float(b[n].abs().max()), 1e-30) for n in b)
+
+
+def _train_attention(seed: int) -> None:
+    """(a) the flash backward (``attention._Flash``) in float32 against
+    autograd through ``attention_ref``."""
+    import torch
+    from repro_torch.models.attention import attention_ref, flash_attention
+    c = TRAIN_ATTN
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    q = draw(c["B"], c["S"], c["H"], c["D"])
+    k = draw(c["B"], c["S"], c["KVH"], c["D"])
+    v = draw(c["B"], c["S"], c["KVH"], c["D"])
+    dout = draw(c["B"], c["S"], c["H"], c["D"])
+    for chunk, window in TRAIN_ATTN_CASES:
+        grads = []
+        for fn in (flash_attention, attention_ref):
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            kw = dict(causal=True, window=window)
+            if fn is flash_attention:
+                kw["chunk"] = chunk
+            out = fn(*ins, **kw)
+            grads.append(torch.autograd.grad(out, ins, dout))
+        errs = [float((a - b).abs().max()) for a, b in zip(*grads)]
+        print(f"[train] (a) flash backward, chunk {chunk}, window {window}: "
+              f"max abs dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+              f"from autograd through attention_ref (bar {TRAIN_ATTN_BAR:g})")
+        require(max(errs) <= TRAIN_ATTN_BAR,
+                f"[train] the flash backward disagrees (chunk {chunk}, "
+                f"window {window})")
+
+
+def _train_float32(seed: int) -> None:
+    """(b) qwen2.5-3b at full width, TRAIN_CUT layers, float32: loss and
+    grads rematerialized against not, a microbatch=2 step's loss against
+    the full batch's, the loss at init near ln V."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.grad import value_and_grad
+
+    cfg = _lm_cfg("float32", n_layers=TRAIN_CUT, remat=False)
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    state = init_state(model, RunConfig(seed=seed))
+    B, S = TRAIN_TOKENS
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                          global_batch=B, seed=seed).batch_at(0)
+    tb = {k: torch.as_tensor(v, dtype=torch.int64, device=DEVICE)
+          for k, v in batch.items()}
+    loss, grads = value_and_grad(model.loss, state.params, tb)
+    model.cfg = dataclasses.replace(cfg, remat=True)
+    rloss, rgrads = value_and_grad(model.loss, state.params, tb)
+    model.cfg = cfg
+    rel = _grads_rel(rgrads, grads)
+    lnv = math.log(cfg.vocab_size)
+    print(f"[train] (b) {LM_ARCH} float32, {TRAIN_CUT} layers, {B}x{S} "
+          f"tokens: loss {float(loss):.6f} at init (ln V {lnv:.4f}); "
+          f"remat against none: loss {abs(float(rloss) - float(loss)):.3e}, "
+          f"grads rel max-abs {rel:.3e} (bar {TRAIN_REMAT_BAR:g})")
+    require(0.5 * lnv < float(loss) < 2.0 * lnv,
+            "[train] the loss at init is not near ln V")
+    require(abs(float(rloss) - float(loss)) <= TRAIN_REMAT_BAR
+            * float(loss) and rel <= TRAIN_REMAT_BAR,
+            "[train] rematerialized loss or grads differ")
+    del grads, rgrads
+    micro = {k: v.reshape(2, B // 2, S) for k, v in tb.items()}
+    _, metrics = make_train_step(model, RunConfig(microbatch=2),
+                                 total_steps=100)(state, micro)
+    mrel = abs(float(metrics["loss"]) - float(loss)) / float(loss)
+    print(f"[train] (b) a microbatch=2 step: loss {float(metrics['loss']):.6f}"
+          f", rel {mrel:.3e} from the full batch's (bar "
+          f"{TRAIN_MICRO_BAR:g}); gnorm {float(metrics['gnorm']):.4f}")
+    require(mrel <= TRAIN_MICRO_BAR and all(
+        math.isfinite(float(m)) for m in metrics.values()),
+        "[train] the microbatched step disagrees with the full batch")
+    del model, state
+    _free_card()
+
+
+def _train_loop(seed: int) -> None:
+    """(c) ``launch.train.train`` on the card at the reference's own smoke
+    configs: the loss falls over TRAIN_SMOKE_STEPS steps; 20 straight
+    steps equal 10 + resume + 10. Checkpoints go to a temporary
+    directory removed afterwards."""
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import RunConfig, ShapeConfig, get_smoke_config
+    from repro_torch.launch.train import train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        run = RunConfig(steps=TRAIN_SMOKE_STEPS, lr=3e-3, warmup_steps=5,
+                        checkpoint_dir=os.path.join(tmp, "q"),
+                        checkpoint_every=10, seed=seed)
+        _, info = train(get_smoke_config(LM_ARCH), run,
+                        shape=ShapeConfig("toy", "train", 32, 4), quiet=True,
+                        device=DEVICE)
+        first = float(np.mean(info["losses"][:5]))
+        last = float(np.mean(info["losses"][-5:]))
+        print(f"[train] (c) train() {LM_ARCH} smoke, {info['end_step']} "
+              f"steps: loss {first:.4f} -> {last:.4f} (means of 5), median "
+              f"step {1e3 * info['median_step_s']:.3f} ms (host clock), "
+              f"{time.perf_counter() - t0:.1f} s")
+        require(last < first - 0.05 and info["end_step"] == TRAIN_SMOKE_STEPS,
+                "[train] the loss did not fall")
+        cfg = get_smoke_config("stablelm-3b")
+        shape = ShapeConfig("toy", "train", 16, 2)
+
+        def run_of(name, steps):
+            return RunConfig(steps=steps, lr=1e-3, checkpoint_every=10,
+                             seed=3, schedule_horizon=20,
+                             checkpoint_dir=os.path.join(tmp, name))
+
+        a, _ = train(cfg, run_of("a", 20), shape=shape, quiet=True,
+                     device=DEVICE)
+        train(cfg, run_of("b", 10), shape=shape, quiet=True, device=DEVICE)
+        b, info_b = train(cfg, run_of("b", 10), shape=shape, quiet=True,
+                          device=DEVICE)
+        diff = max(float((a.params[n] - b.params[n]).detach().abs().max())
+                   for n in a.params)
+        print(f"[train] (c) stablelm-3b smoke: 20 straight steps against 10 "
+              f"+ resume + 10: max abs {diff:.3e} over the parameters (atol "
+              f"{TRAIN_RESUME_ATOL:g}); resumed run ended at step "
+              f"{info_b['end_step']}")
+        require(diff <= TRAIN_RESUME_ATOL and info_b["end_step"] == 20,
+                "[train] the resumed run differs from the straight one")
+    _free_card()
+
+
+def _train_full(seed: int, card: str) -> None:
+    """(d) qwen2.5-3b at full width and depth in bf16, remat "nothing":
+    TRAIN_FULL_STEPS ``make_train_step`` steps on ``TokenPipeline``
+    batches; step ms, tokens/s, peak memory, ops a step, device busy and
+    idle share, and the step's bound (8 N T FLOPs over the bf16 peak
+    plus the optimizer's bytes over HBM bandwidth)."""
+    import math
+    import statistics as stats
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.model import count_params_analytic
+
+    cfg = _lm_cfg("bfloat16", remat=True, remat_policy="nothing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    run = RunConfig(seed=seed)
+    state = init_state(model, run)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in state.params.values())
+    require(n == count_params_analytic(cfg) - cfg.d_model,
+            f"[train] {n} parameters at full depth")
+    print(f"[train] (d) {LM_ARCH} bf16 at full depth: {n} parameters, "
+          f"AdamW state {8 * n / 1e9:.2f} GB float32, built and drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    B, S = TRAIN_FULL
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                         global_batch=B, seed=seed)
+    step = make_train_step(model, run, total_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, gnorms = [], [], []
+    for i in range(TRAIN_FULL_STEPS):
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses + gnorms),
+            f"[train] a non-finite loss or gnorm: {losses} {gnorms}")
+    med = stats.median(ms[TRAIN_FULL_WARM:])
+    tokens = B * S
+    print(f"[train] (d) {TRAIN_FULL_STEPS} steps of {B}x{S} tokens: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; gnorms "
+          f"{', '.join(f'{x:.3f}' for x in gnorms)}")
+    print(f"[train] (d) step ms {', '.join(f'{x:.1f}' for x in ms)} (host "
+          f"clock, synchronized); median after the first "
+          f"{TRAIN_FULL_WARM}: {med:.3f} ms, {tokens / med * 1e3:.1f} "
+          f"tokens/s; peak memory {peak / 2**30:.3f} GiB")
+
+    class OpCount(TorchDispatchMode):
+        """Counts the aten ops dispatched inside it (backward's too)."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counter = OpCount()
+    with counter:
+        state, _ = step(state, pipe.batch_at(TRAIN_FULL_STEPS))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, _ = step(state, pipe.batch_at(TRAIN_FULL_STEPS + 1))
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t)
+    busy, split = device_split(prof, TRAIN_KERNEL_GROUPS)
+    flops = 8.0 * n * tokens
+    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    opt_bytes = OPT_BYTES_PER_PARAM * n
+    t_bytes = opt_bytes / PEAK_BYTES * 1e3
+    bound = t_flops + t_bytes
+    print(f"[train] (d) step bound: 8 x {n} parameters x {tokens} tokens = "
+          f"{flops:.4e} FLOP (forward, remat recompute, backward) over 989 "
+          f"TFLOP/s bf16 = {t_flops:.3f} ms, plus the optimizer's "
+          f"{OPT_BYTES_PER_PARAM} B a parameter = {opt_bytes / 1e9:.3f} GB "
+          f"over 3.35 TB/s = {t_bytes:.3f} ms: {bound:.3f} ms; the step at "
+          f"{bound / med:.4f} of it")
+    us_op = med / counter.n * 1e3
+    print(f"[train] (d) a step dispatches {counter.n} ops ({us_op:.1f} us "
+          f"of the median step each); under the profiler: "
+          f"wall {prof_ms:.3f} ms, device busy " + _busy_text(busy, prof_ms)
+          + f"; {card}")
+    print("[train] (d) device ms of the profiled step by kernel name: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f", the rest {busy - sum(split.values()):.3f} (of busy; the "
+          f"groups may overlap in time)")
+    del state, model, step, prof
+    _free_card()
+
+
+def phase_train(seed: int, card: str) -> None:
+    """The LM trained on the card: (a) the flash backward against
+    autograd through the oracle at qwen2.5-3b's head shapes; (b)
+    qwen2.5-3b at full width, cut depth, float32 (remat, microbatches,
+    the loss at init); (c) ``launch.train.train`` at the smoke configs
+    (the loss falls, a resume equals a straight run); (d) qwen2.5-3b at
+    full width and depth in bf16, timed against its bound. No kernel of
+    K1-K6 or F1 lies on this path."""
+    t_phase = time.perf_counter()
+    print(f"[train] {LM_ARCH} at full width {LM_DIMS}; {card}")
+    before = launches()
+    _train_attention(seed)
+    _train_float32(seed)
+    _train_loop(seed)
+    _train_full(seed, card)
+    n = sum(c - before.get(k, 0) for k, c in launches().items())
+    print(f"[train] kernel launches of K1-K6 and F1 in the phase: {n}")
+    require(n == 0, "[train] a CT kernel launched in the training phase")
+    print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3541,6 +3856,9 @@ def main(argv=None) -> int:
     # the other LM families: the MoE/MLA model served, then the rest
     phase_moe(args.seed, card)
     phase_families(args.seed, card)
+    # the LM trained: no kernel of its own (the reference's training path
+    # reaches no pl.pallas_call)
+    phase_train(args.seed, card)
     for name, row in rows.items():
         row["launches_batch"] = (batch.get(name, 0) + stream.get(name, 0)
                                  + service.get(name, 0))

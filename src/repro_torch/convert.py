@@ -1,9 +1,9 @@
 """State carried across from the JAX package.
 
 For CT the state both packages share is the acquisition geometry and
-the projection stack; for the LM substrate, the parameters. These
-functions take them over from plain Python and numpy values, so the port
-never imports the JAX package.
+the projection stack; for the LM substrate, the parameters and the
+training state. These functions take them over from plain Python and
+numpy values, so the port never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -64,6 +64,24 @@ STACKED = ("layers", "lead_layers", "units", "trail", "enc_layers",
            "dec_layers")
 
 
+def tree_by_name(tree: Mapping) -> Dict[str, np.ndarray]:
+    """Another package's LM tree (the parameters, or any tree shaped like
+    them: a gradient, an AdamW moment) by the port's parameter names, as
+    float32 numpy arrays: nested keys join with ``.``, and every leaf
+    under a subtree of ``STACKED`` is unstacked along its leading layer
+    axis into ``{prefix}.{index}.{rest}``."""
+    flat = {}
+    for name, arr in _flatten(tree).items():
+        arr = np.array(arr, np.float32)    # a writable copy
+        prefix, _, rest = name.partition(".")
+        if prefix in STACKED and rest:
+            for layer in range(arr.shape[0]):
+                flat[f"{prefix}.{layer}.{rest}"] = arr[layer]
+        else:
+            flat[name] = arr
+    return flat
+
+
 def lm_params_from_reference(model, tree: Mapping):
     """Load another package's LM parameter tree into ``model`` (a module
     from ``repro_torch.models.build_model``) and return the model.
@@ -81,15 +99,7 @@ def lm_params_from_reference(model, tree: Mapping):
     parameter's dtype on its device. Raises ``ValueError`` on a missing
     or unknown leaf, or a shape that does not match.
     """
-    flat = {}
-    for name, arr in _flatten(tree).items():
-        arr = np.array(arr, np.float32)    # a writable copy
-        prefix, _, rest = name.partition(".")
-        if prefix in STACKED and rest:
-            for layer in range(arr.shape[0]):
-                flat[f"{prefix}.{layer}.{rest}"] = arr[layer]
-        else:
-            flat[name] = arr
+    flat = tree_by_name(tree)
     params = dict(model.named_parameters())
     missing, extra = set(params) - set(flat), set(flat) - set(params)
     if missing or extra:
@@ -104,3 +114,36 @@ def lm_params_from_reference(model, tree: Mapping):
                                  f"model has {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
     return model
+
+
+def train_state_from_reference(model, state):
+    """The port's ``launch.train.TrainState`` from another package's.
+
+    ``state`` is the JAX package's ``TrainState(params, opt)`` with
+    ``opt`` an ``AdamWState(step, m, v)``, as numpy arrays (any objects
+    with those attributes). The parameters load into ``model``
+    (``lm_params_from_reference``) and turn on gradients; ``m`` and
+    ``v`` map by name (``tree_by_name``) to float32 tensors beside them.
+    """
+    from repro_torch.launch.train import TrainState
+    from repro_torch.optim import AdamWState
+
+    lm_params_from_reference(model, state.params)
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+
+    def moments(tree):
+        flat = tree_by_name(tree)
+        if set(flat) != set(params):
+            raise ValueError("optimizer state does not match the model's "
+                             "parameters")
+        return {n: torch.from_numpy(flat[n]).to(p.device)
+                for n, p in params.items()}
+
+    dev = next(iter(params.values())).device
+    opt = AdamWState(
+        step=torch.tensor(int(np.asarray(state.opt.step)),
+                          dtype=torch.int32, device=dev),
+        m=moments(state.opt.m), v=moments(state.opt.v))
+    return TrainState(params=params, opt=opt)

@@ -1,3 +1,3 @@
-"""Launch layer: device meshes (``launch.mesh``) and the continuous-
-batching server (``launch.serve``). Import the modules directly;
-importing this package touches no device."""
+"""Launch layer: device meshes (``launch.mesh``), the continuous-batching
+server (``launch.serve``) and the trainer (``launch.train``). Import the
+modules directly; importing this package touches no device."""

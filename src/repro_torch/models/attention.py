@@ -12,7 +12,12 @@ exact in float32, so this is the reference's ``preferred_element_type``
 contraction. MLA decode keeps DeepSeek's weight absorption: attention
 runs in the kv_lora latent space and the cache holds only (c_kv, k_rope).
 
-The flash backward (training, ROADMAP.md queue 1 step 2c) is not ported.
+Training differentiates the flash attention through its own backward
+(``_Flash``, the reference's ``custom_vjp``): the forward keeps only q,
+k, v, the output and the log-sum-exp, and the backward recomputes each
+KV chunk's probabilities (FlashAttention-2's schedule), so neither pass
+holds the S^2 scores. GQA, cross attention and MLA prefill train
+through it.
 """
 
 from __future__ import annotations
@@ -82,14 +87,10 @@ def _chunk_mask(kpos, qpos, Skv, causal, window):
     return mask
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, chunk=1024,
-                    q_offset=0):
-    """Online-softmax attention over KV chunks of ``chunk``.
-
-    q: (B,Sq,H,D); k,v: (B,Skv,KVH,Dk/Dv). Returns (B,Sq,H,Dv) in
-    q.dtype. The running output, maximum and normalizer are float32;
-    the last chunk is zero-padded and masked.
-    """
+def _flash_fwd_impl(q, k, v, causal, window, chunk, q_offset):
+    """The chunked forward: (out (B,Sq,H,Dv) in q.dtype, lse (B,Sq,KVH,G)
+    float32). The running output, maximum and normalizer are float32;
+    the last chunk is zero-padded and masked."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     Dv = v.shape[3]
@@ -118,7 +119,83 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=1024,
         m = m_new
     l_safe = torch.clamp(l, min=1e-30)
     out = o / l_safe[..., None]
-    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+    lse = m + torch.log(l_safe)
+    return out.reshape(B, Sq, H, Dv).to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, chunk, q_offset):
+    """The reference's ``_flash_bwd``: (dq, dk, dv) in the inputs' dtypes.
+
+    ``delta = sum(dout * out)``; per KV chunk, ``p = exp(s - lse)`` under
+    the forward's mask, ``dv = p^T dout``, ``dp = dout v^T``, ``ds = p (dp
+    - delta)``, ``dq += ds k scale`` (a float32 accumulator), ``dk = ds^T
+    q scale``; all in float32, grouped as the forward groups GQA."""
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    Dv = v.shape[3]
+    G = H // KVH
+    chunk = min(chunk, Skv)
+    kc, vc, n_chunks = _chunk_kv(k, v, chunk)
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qf = _f32(q).reshape(B, Sq, KVH, G, D)
+    dof = _f32(dout).reshape(B, Sq, KVH, G, Dv)
+    of = _f32(out).reshape(B, Sq, KVH, G, Dv)
+    delta = torch.sum(dof * of, dim=-1)                  # (B,Sq,KVH,G)
+    qpos = (q_offset + torch.arange(Sq, device=dev))[:, None]
+    dq = torch.zeros((B, Sq, KVH, G, D), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for c in range(n_chunks):
+        kbf, vbf = _f32(kc[c]), _f32(vc[c])
+        kpos = c * chunk + torch.arange(chunk, device=dev)[None, :]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kbf) * scale
+        mask = _chunk_mask(kpos, qpos, Skv, causal, window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                # normalized probs
+        dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dof))
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof, vbf)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bqhgk,bkhd->bqhgd", ds, kbf) * scale
+        dks.append(torch.einsum("bqhgk,bqhgd->bkhd", ds, qf) * scale)
+    dk = torch.cat(dks, dim=1)[:, :Skv]
+    dv = torch.cat(dvs, dim=1)[:, :Skv]
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's custom backward; ``causal``,
+    ``window``, ``chunk`` and ``q_offset`` are not differentiated."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, q_offset):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, chunk,
+                                   q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static = (causal, window, chunk, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.static)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, chunk=1024,
+                    q_offset=0):
+    """Online-softmax attention over KV chunks of ``chunk``, O(chunk)
+    memory in forward and backward.
+
+    q: (B,Sq,H,D); k,v: (B,Skv,KVH,Dk/Dv). Returns (B,Sq,H,Dv) in
+    q.dtype. Where autograd records and an input requires grad, the
+    call runs through ``_Flash`` (the reference's custom VJP); else the
+    plain chunked forward runs.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, window, chunk, q_offset)
+    return _flash_fwd_impl(q, k, v, causal, window, chunk, q_offset)[0]
 
 
 # --------------------------------------------------------------------------

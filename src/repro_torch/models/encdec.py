@@ -6,7 +6,8 @@ causal stack with cross attention; decode serves with a self-attention
 KV cache, updated in place, plus the cross K/V computed at prefill.
 Parameters keep the reference's names (``embed``, ``enc_layers``,
 ``dec_layers`` with ``ln_cross`` and ``cross``, ``ln_enc``, ``ln_dec``,
-``unembed``). The training objective is ROADMAP.md queue 1 step 2c.
+``unembed``). Training (``encdec_loss``) rematerializes each encoder and
+decoder layer under ``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 from torch import nn
 
 from . import attention as attn
-from .layers import (MLP, Norm, _param, apply_norm, embed, embed_init, mlp,
-                     rope_freqs, unembed)
+from .layers import (MLP, Norm, _param, apply_norm, chunked_cross_entropy,
+                     embed, embed_init, mlp, remat, rope_freqs, unembed)
 
 
 class EncLayer(nn.Module):
@@ -91,52 +92,77 @@ def _positions(B, S, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
-def encode(params: EncDecLM, frames: torch.Tensor, cfg) -> torch.Tensor:
+def _enc_layer(lp: EncLayer, h, cfg, positions, inv_freq):
+    B, S, _ = h.shape
+    hn = apply_norm(cfg.norm, lp.ln_attn, h)
+    q, k, v = attn.gqa_qkv(lp.attn, hn, cfg, positions, inv_freq)
+    o = attn.flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    h = h + o.reshape(B, S, -1) @ lp.attn.wo
+    hn = apply_norm(cfg.norm, lp.ln_mlp, h)
+    return h + mlp(lp.mlp, hn, cfg.activation)
+
+
+def encode(params: EncDecLM, frames: torch.Tensor, cfg, *,
+           for_train: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, d_model) stub embeddings -> encoder output."""
     B, S, _ = frames.shape
     h = frames.to(cfg.np_dtype)
     positions = _positions(B, S, h.device)
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, h.device)
     for lp in params.enc_layers:
-        hn = apply_norm(cfg.norm, lp.ln_attn, h)
-        q, k, v = attn.gqa_qkv(lp.attn, hn, cfg, positions, inv_freq)
-        o = attn.flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        h = h + o.reshape(B, S, -1) @ lp.attn.wo
-        hn = apply_norm(cfg.norm, lp.ln_mlp, h)
-        h = h + mlp(lp.mlp, hn, cfg.activation)
+        h = remat(cfg, _enc_layer, lp, h, cfg, positions, inv_freq,
+                  for_train=for_train)
     return apply_norm(cfg.norm, params.ln_enc, h)
 
 
+def _dec_layer(lp: DecLayer, x, enc_out, cfg, positions, inv_freq):
+    """One decoder layer: (x, self (k, v), cross (ck, cv))."""
+    hn = apply_norm(cfg.norm, lp.ln_attn, x)
+    out, kv = attn.gqa_prefill(lp.attn, hn, cfg, positions, inv_freq)
+    x = x + out
+    hn = apply_norm(cfg.norm, lp.ln_cross, x)
+    ck, cv = attn.cross_kv(lp.cross, enc_out, cfg)
+    x = x + attn.cross_attention(lp.cross, hn, ck, cv, cfg)
+    hn = apply_norm(cfg.norm, lp.ln_mlp, x)
+    return x + mlp(lp.mlp, hn, cfg.activation), kv, (ck, cv)
+
+
 def decode_seq(params: EncDecLM, tokens: torch.Tensor, enc_out, cfg,
-               *, collect_cache: bool = False):
+               *, for_train: bool = False, collect_cache: bool = False,
+               return_hidden: bool = False):
     """Teacher-forced decoder pass. tokens (B, S_dec). Returns (logits,
-    caches|None): with ``collect_cache``, ((k, v), (ck, cv)) stacked on a
-    leading layer axis."""
+    or with ``return_hidden`` the final hidden states, and caches|None):
+    with ``collect_cache``, ((k, v), (ck, cv)) stacked on a leading layer
+    axis."""
     B, S = tokens.shape
     x = embed(params.embed, tokens)
     positions = _positions(B, S, x.device)
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, x.device)
     self_kv, cross_kv = [], []
     for lp in params.dec_layers:
-        hn = apply_norm(cfg.norm, lp.ln_attn, x)
-        out, kv = attn.gqa_prefill(lp.attn, hn, cfg, positions, inv_freq)
-        x = x + out
-        hn = apply_norm(cfg.norm, lp.ln_cross, x)
-        ck, cv = attn.cross_kv(lp.cross, enc_out, cfg)
-        x = x + attn.cross_attention(lp.cross, hn, ck, cv, cfg)
-        hn = apply_norm(cfg.norm, lp.ln_mlp, x)
-        x = x + mlp(lp.mlp, hn, cfg.activation)
+        x, kv, ckv = remat(cfg, _dec_layer, lp, x, enc_out, cfg, positions,
+                           inv_freq, for_train=for_train)
         if collect_cache:
             self_kv.append(kv)
-            cross_kv.append((ck, cv))
+            cross_kv.append(ckv)
     x = apply_norm(cfg.norm, params.ln_dec, x)
-    logits = unembed(params.unembed, x, tied=False)
+    out = x if return_hidden else unembed(params.unembed, x, tied=False)
     if not collect_cache:
-        return logits, None
+        return out, None
 
     def stacked(pairs):
         return tuple(torch.stack(parts) for parts in zip(*pairs))
-    return logits, (stacked(self_kv), stacked(cross_kv))
+    return out, (stacked(self_kv), stacked(cross_kv))
+
+
+def encdec_loss(params: EncDecLM, batch: dict, cfg) -> torch.Tensor:
+    """Chunked cross-entropy of the decoder's next tokens, the encoder
+    reading ``batch["frames"]``."""
+    enc_out = encode(params, batch["frames"], cfg, for_train=True)
+    h, _ = decode_seq(params, batch["tokens"], enc_out, cfg,
+                      for_train=True, return_hidden=True)
+    return chunked_cross_entropy(h, params.unembed, batch["labels"],
+                                 tied=False)
 
 
 def encdec_prefill(params: EncDecLM, frames: torch.Tensor,

@@ -11,6 +11,11 @@ Decode state per layer: RG-LRU hidden + conv tail for "rec", a
 window-sized ring-buffer KV cache for "attn", in the reference's layout
 (``init_hybrid_state``: ``units`` by key, ``trail``, each leaf with the
 layer axis first and the batch axis second), updated in place.
+
+Training (``hybrid_loss``: tied, logits soft-capped at 30) rematerializes
+each macro-unit under ``cfg.remat``, as the reference checkpoints its
+unit scan body (the trailing layers are not rematerialized there
+either); autograd differentiates the sequential RG-LRU scan.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ from torch import nn
 from . import attention as attn
 from . import rglru
 from .kvcache import recurrent_state, window_cache
-from .layers import MLP, Norm, _param, apply_norm, embed, mlp, rope_freqs, \
-    unembed
+from .layers import MLP, Norm, _param, apply_norm, chunked_cross_entropy, \
+    embed, mlp, remat, rope_freqs, unembed
 
 
 def n_units(cfg):
@@ -150,25 +155,51 @@ def _softcap(logits):
     return 30.0 * torch.tanh(logits / 30.0)    # gemma-style soft cap
 
 
+def _unit_train(unit: nn.ModuleDict, x, cfg, positions, inv_freq):
+    for layer in unit.values():
+        x, _ = _layer_seq(layer, x, cfg, positions, inv_freq)
+    return x
+
+
 def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg,
-                   *, collect_state: bool = False):
+                   *, for_train: bool = False, collect_state: bool = False,
+                   return_hidden: bool = False):
     """tokens (B, S) -> (logits (B,S,V) float32, aux 0.0), or with
     ``collect_state`` (logits, (unit states, trail states)): each layer's
-    state stacked on a leading axis in ``init_hybrid_state``'s layout."""
+    state stacked on a leading axis in ``init_hybrid_state``'s layout.
+    ``return_hidden`` returns the final hidden states in the logits'
+    place; ``for_train`` rematerializes each unit under ``cfg.remat``."""
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device).expand(B, S)
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, x.device)
     states = []
-    for layer in params.layers():
-        x, st = _layer_seq(layer, x, cfg, positions, inv_freq,
-                           collect_state=collect_state)
-        states.append(st)
+    if collect_state:
+        for layer in params.layers():
+            x, st = _layer_seq(layer, x, cfg, positions, inv_freq,
+                               collect_state=True)
+            states.append(st)
+    else:
+        for unit in params.units:
+            x = remat(cfg, _unit_train, unit, x, cfg, positions, inv_freq,
+                      for_train=for_train)
+        for t in params.trail:
+            x, _ = _layer_seq(t["layer"], x, cfg, positions, inv_freq)
     x = apply_norm(cfg.norm, params.ln_f, x)
-    logits = _softcap(unembed(params.embed, x, tied=True))
+    out = x if return_hidden else _softcap(unembed(params.embed, x,
+                                                   tied=True))
     if not collect_state:
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, _stack_states(params, states)
+        return out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return out, _stack_states(params, states)
+
+
+def hybrid_loss(params: HybridLM, batch: dict, cfg) -> torch.Tensor:
+    """Chunked cross-entropy over the tied embedding, logits soft-capped
+    at 30 (the reference's ``model.loss`` of the hybrid family)."""
+    h, _ = hybrid_forward(params, batch["tokens"], cfg, for_train=True,
+                          return_hidden=True)
+    return chunked_cross_entropy(h, params.embed, batch["labels"],
+                                 tied=True, softcap=30.0)
 
 
 def _stack_states(params: HybridLM, states):

@@ -1,4 +1,4 @@
-"""Shared neural-net building blocks: the inference half.
+"""Shared neural-net building blocks, losses and rematerialization.
 
 Conventions (the JAX package's):
   * weights are stored ``(d_in, d_out)`` so ``x @ w`` contracts the minor
@@ -8,20 +8,28 @@ Conventions (the JAX package's):
     angles and the unembedding run in float32 and cast back;
   * random draws come from an explicit ``torch.Generator`` on the
     parameters' device (the JAX package's ``KeyGen``), in float32, and
-    are cast to the parameter dtype.
+    are cast to the parameter dtype;
+  * parameters are built with ``requires_grad=False``, so serving records
+    no autograd graph; the trainer turns gradients on
+    (``launch.train.init_state``).
 
-Cross-entropy and rematerialization belong to training (ROADMAP.md queue
-1 step 2c).
+Training: the losses run in float32 (``cross_entropy``, and
+``chunked_cross_entropy``, whose sequence chunks recompute their logits
+in backward), and ``remat`` wraps a layer in activation checkpointing
+under ``cfg.remat`` (the reference's ``jax.checkpoint`` with
+``remat_policy``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils import checkpoint as _ckpt
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -45,8 +53,8 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialized inference parameter (``reset_parameters`` fills
-    it)."""
+    """An uninitialized parameter (``reset_parameters`` fills it), built
+    without gradients (training turns them on)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -183,3 +191,92 @@ def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
     if tied:
         return xf @ w.T
     return xf @ w
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def _ce_chunk(hb, table_or_head, lb, tied: bool, softcap: float):
+    """(summed NLL, valid count) of one sequence chunk, float32."""
+    logits = unembed(table_or_head, hb, tied=tied)      # (B, chunk, V)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    valid = lb >= 0
+    safe = torch.clamp(lb, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, logz - ll, 0.0)
+    return nll.sum(), valid.sum(dtype=torch.float32)
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, table_or_head: torch.Tensor,
+                          labels: torch.Tensor, *, tied: bool,
+                          chunk: int = 512,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy without the full (B, S, V) logits.
+
+    The sequence runs in chunks of ``chunk``; under autograd each chunk
+    runs in a non-reentrant ``torch.utils.checkpoint``, so its (B, chunk,
+    V) float32 logits are recomputed in backward rather than kept: the
+    peak is O(B chunk V), not O(B S V). Labels of -1 are ignored;
+    ``softcap`` caps the logits with ``softcap * tanh(logits / softcap)``.
+    """
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        args = (hidden[:, c0:c0 + chunk], table_or_head,
+                labels[:, c0:c0 + chunk], tied, softcap)
+        if torch.is_grad_enabled():
+            nll, n = _ckpt.checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            nll, n = _ce_chunk(*args)
+        nll_sum = nll_sum + nll
+        cnt = cnt + n
+    return nll_sum / torch.clamp(cnt, min=1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in float32. labels: integer, -1 = ignore;
+    ``mask`` > 0 keeps a token."""
+    logits = logits.to(torch.float32)
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
+    safe = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - ll) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+# --------------------------------------------------------------------------
+# rematerialization
+# --------------------------------------------------------------------------
+
+def remat_policy(cfg) -> Callable:
+    """The ``context_fn`` of ``cfg.remat_policy`` for a non-reentrant
+    checkpoint: for ``"nothing"`` none (save the layer's inputs only,
+    recompute everything: least memory), for ``"dots"`` a selective
+    checkpoint that saves the ``mm``/``bmm``/``addmm`` outputs (the
+    backward recomputes the elementwise work only)."""
+    if getattr(cfg, "remat_policy", "nothing") == "dots":
+        aten = torch.ops.aten
+        return functools.partial(
+            _ckpt.create_selective_checkpoint_contexts,
+            [aten.mm.default, aten.bmm.default, aten.addmm.default])
+    return _ckpt.noop_context_fn
+
+
+def remat(cfg, fn: Callable, *args, for_train: bool = True):
+    """``fn(*args)``, as a rematerialized layer when ``cfg.remat`` and
+    ``for_train`` hold and autograd records: a non-reentrant
+    ``torch.utils.checkpoint`` that keeps ``args`` and recomputes the
+    layer's activations in backward, under ``remat_policy(cfg)``."""
+    if not (cfg.remat and for_train and torch.is_grad_enabled()):
+        return fn(*args)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            context_fn=remat_policy(cfg))

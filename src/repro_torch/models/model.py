@@ -1,11 +1,13 @@
 """Model dispatcher: the uniform API over the architecture families.
 
     model = build_model(cfg, seed=0)          # an nn.Module on the card
+    loss = model.loss(batch)                  # train objective
     logits, aux = model(batch)                # teacher-forced forward
     logits, cache, pos = model.prefill(batch, max_len)
     logits, cache = model.decode_step(cache, token, pos)
     cache = model.init_decode_state(batch_size, max_len)
     batch = model.dummy_batch(shape, seed)    # seeded tokens and labels
+    specs = model.input_specs(shape)          # meta tensors (dry-run)
 
 Families: dense | moe (incl. MLA) | encdec | hybrid | ssm | vlm. The
 parameters live in the module; ``init_params`` returns them by name and
@@ -13,8 +15,10 @@ parameters live in the module; ``init_params`` returns them by name and
 As in the JAX package, the frontends are stubs: an encdec batch carries
 precomputed ``"frames"`` (B, S_enc, d_model) and a vlm batch precomputed
 ``"patches"`` (B, frontend_tokens, frontend_dim); the backbone is real.
-The training objective (``loss``) is ROADMAP.md queue 1 step 2c, and
-``input_specs`` (the dry-run's) step 2d.
+Parameters are built without gradients; ``launch.train.init_state``
+turns them on for training. ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``, so a model that was trained serves without
+recording a graph.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from repro_torch._device import resolve_device
 
 from . import encdec, hybrid, ssm, transformer
 from .kvcache import full_cache, mla_cache
-from .layers import _gelu, _param, dense_init, embed, generator
+from .layers import (_gelu, _param, chunked_cross_entropy, dense_init,
+                     embed, generator)
 
 
 # --------------------------------------------------------------------------
@@ -136,6 +141,13 @@ class _Serving:
         return {"tokens": self._draw_tokens(B, S, seed),
                 "labels": self._draw_tokens(B, S, seed)}
 
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        """The batch's shapes and dtypes, as ``meta`` tensors: what
+        ``dummy_batch`` draws."""
+        B, S = shape.global_batch, shape.seq_len
+        tok = torch.empty((B, S), dtype=torch.int64, device="meta")
+        return {"tokens": tok, "labels": tok}
+
 
 class VlmProjector(torch.nn.Module):
     """The vision stub's projector: ``proj1`` (frontend_dim, d),
@@ -193,6 +205,23 @@ class LM(_Serving, transformer.TransformerLM):
             self, x, self.cfg, transformer._positions(B, S, x.device))
         return transformer.logits_from_hidden(self, h, self.cfg), aux
 
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Chunked cross-entropy plus 0.01 times the MoE aux loss; for the
+        vlm family over the text positions only (``h[:, P:]``)."""
+        if self.cfg.family != "vlm":
+            return transformer.lm_loss(self, batch, self.cfg)
+        x = self._embeds(batch)
+        B, S, _ = x.shape
+        h, aux, _ = transformer.forward_embeds(
+            self, x, self.cfg, transformer._positions(B, S, x.device),
+            for_train=True)
+        P = batch["patches"].shape[1]
+        w = self.embed if self.cfg.tie_embeddings else self.unembed
+        ce = chunked_cross_entropy(h[:, P:], w, batch["labels"],
+                                   tied=self.cfg.tie_embeddings)
+        return ce + 0.01 * aux
+
+    @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):
         """(last logits, cache, pos). A vlm cache holds the patch tokens
         and the text, so it is at least that long."""
@@ -207,6 +236,7 @@ class LM(_Serving, transformer.TransformerLM):
         return (transformer.logits_from_hidden(self, h[:, -1:], self.cfg),
                 cache, S)
 
+    @torch.no_grad()
     def decode_step(self, cache: dict, token: torch.Tensor, pos):
         """One token a sequence at position ``pos``; the cache is updated
         in place and returned."""
@@ -231,6 +261,14 @@ class LM(_Serving, transformer.TransformerLM):
                  self.cfg.frontend_dim), seed)
         return b
 
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        b = super().input_specs(shape)
+        if self.cfg.family == "vlm":
+            b["patches"] = torch.empty(
+                (shape.global_batch, self.cfg.frontend_tokens,
+                 self.cfg.frontend_dim), device="meta")
+        return b
+
 
 class EncDecModel(_Serving, encdec.EncDecLM):
     """The ``encdec`` family: batches carry ``"frames"`` and
@@ -243,10 +281,15 @@ class EncDecModel(_Serving, encdec.EncDecLM):
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
 
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return encdec.encdec_loss(self, batch, self.cfg)
+
+    @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):
         return encdec.encdec_prefill(self, batch["frames"], batch["tokens"],
                                      self.cfg, max_len)
 
+    @torch.no_grad()
     def decode_step(self, cache: dict, token: torch.Tensor, pos):
         return encdec.encdec_decode_step(self, cache, token, pos, self.cfg)
 
@@ -266,6 +309,13 @@ class EncDecModel(_Serving, encdec.EncDecLM):
             (shape.global_batch, shape.seq_len, self.cfg.d_model), seed)
         return b
 
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        b = super().input_specs(shape)
+        b["frames"] = torch.empty(
+            (shape.global_batch, shape.seq_len, self.cfg.d_model),
+            device="meta")
+        return b
+
 
 class HybridModel(_Serving, hybrid.HybridLM):
     """The ``hybrid`` family: an O(window) decode state, whatever
@@ -274,6 +324,10 @@ class HybridModel(_Serving, hybrid.HybridLM):
     def forward(self, batch: Dict[str, torch.Tensor]):
         return hybrid.hybrid_forward(self, batch["tokens"], self.cfg)
 
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return hybrid.hybrid_loss(self, batch, self.cfg)
+
+    @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):
         del max_len
         tokens = batch["tokens"]
@@ -284,6 +338,7 @@ class HybridModel(_Serving, hybrid.HybridLM):
             state["trail"] = trail
         return logits[:, -1:], state, tokens.shape[1]
 
+    @torch.no_grad()
     def decode_step(self, state: dict, token: torch.Tensor, pos):
         return hybrid.hybrid_decode_step(self, state, token, pos, self.cfg)
 
@@ -299,10 +354,15 @@ class RwkvModel(_Serving, ssm.RwkvLM):
     def forward(self, batch: Dict[str, torch.Tensor]):
         return ssm.rwkv_forward(self, batch["tokens"], self.cfg)
 
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return ssm.rwkv_loss(self, batch, self.cfg)
+
+    @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):
         del max_len
         return ssm.rwkv_prefill(self, batch["tokens"], self.cfg)
 
+    @torch.no_grad()
     def decode_step(self, state: dict, token: torch.Tensor, pos):
         return ssm.rwkv_decode_step(self, state, token, pos, self.cfg)
 

@@ -9,7 +9,9 @@ dispatch is performance work, ROADMAP.md queue 2).
 
 Shared experts (DeepSeek-V2) are always-on MLPs added to the routed
 output. The Switch load-balance auxiliary loss is returned as the
-reference returns it (the trainer reads it, step 2c).
+reference returns it; ``transformer.lm_loss`` adds 0.01 of it, and its
+gradient reaches the router through the routing probabilities (the
+capacity ranks, one-hots and drops carry none, as in the reference).
 """
 
 from __future__ import annotations

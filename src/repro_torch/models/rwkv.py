@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils import checkpoint as _ckpt
 
 from .layers import _param, dense_init
 
@@ -141,15 +142,25 @@ def _group_norm(p: TimeMix, y, H, hd):
         p.ln_x_bias.to(torch.float32)
 
 
+def _wkv6_steps(S, rf, kf, vf, wf, uf):
+    """The recurrence over the steps of rf..wf (B,T,H,hd) from state S."""
+    ys = []
+    for t in range(rf.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # (B,H,hd,hd)
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], S + uf * kv))
+        S = wf[:, t, :, :, None] * S + kv
+    return torch.stack(ys, dim=1), S
+
+
 def wkv6_scan(r, k, v, w, u, S0=None, *, chunk: int = 128):
-    """The WKV-6 recurrence over a sequence.
+    """The WKV-6 recurrence over a sequence, stepped in time order.
 
     r,k,v,w: (B,T,H,hd); u: (H,hd); S0: (B,H,hd,hd) float32 or None.
-    Returns (y (B,T,H,hd) float32, S_last). The reference scans in
-    chunks of ``chunk`` steps so that its backward saves only the
-    chunks' boundary states; forward, every chunking runs the same steps
-    in the same order, so the port takes ``chunk`` and steps straight
-    through (its training half is ROADMAP.md queue 1 step 2c).
+    Returns (y (B,T,H,hd) float32, S_last). Under autograd, as in the
+    reference, each chunk of ``chunk`` steps is rematerialized (a
+    non-reentrant checkpoint) when ``chunk`` divides T, so backward keeps
+    the chunks' boundary states, not one (B,H,hd,hd) state a step;
+    forward, every chunking runs the same steps in the same order.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
@@ -158,12 +169,16 @@ def wkv6_scan(r, k, v, w, u, S0=None, *, chunk: int = 128):
     uf = u.to(torch.float32)[None, :, :, None]
     S = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
          if S0 is None else S0.to(torch.float32))
+    chunk = min(chunk, T)
+    if not torch.is_grad_enabled() or T % chunk:
+        return _wkv6_steps(S, rf, kf, vf, wf, uf)
     ys = []
-    for t in range(T):
-        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # (B,H,hd,hd)
-        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], S + uf * kv))
-        S = wf[:, t, :, :, None] * S + kv
-    return torch.stack(ys, dim=1), S
+    for c0 in range(0, T, chunk):
+        y, S = _ckpt.checkpoint(
+            _wkv6_steps, S, *(t[:, c0:c0 + chunk] for t in (rf, kf, vf, wf)),
+            uf, use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), S
 
 
 def _shifted(x, prev):

@@ -2,7 +2,8 @@
 
 Parameters keep the JAX package's names (``embed``, ``ln_in``, ``ln_f``,
 ``layers.{l}.{ln_t,ln_c,tm,cm}...``, ``unembed``); the decode state is
-``kvcache.rwkv_state``'s, updated in place.
+``kvcache.rwkv_state``'s, updated in place. Training (``rwkv_loss``,
+untied) rematerializes each layer under ``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from torch import nn
 
 from . import rwkv
 from .kvcache import rwkv_state
-from .layers import Norm, _param, apply_norm, embed, embed_init, unembed
+from .layers import (Norm, _param, apply_norm, chunked_cross_entropy, embed,
+                     embed_init, remat, unembed)
 
 
 class RwkvLayer(nn.Module):
@@ -92,11 +94,25 @@ def _hidden(params: RwkvLM, tokens, cfg, state=None):
     return apply_norm("layernorm", params.ln_f, x), states
 
 
-def rwkv_forward(params: RwkvLM, tokens: torch.Tensor, cfg):
-    """tokens (B, S) -> (logits (B,S,V) float32, aux 0.0)."""
-    x, _ = _hidden(params, tokens, cfg)
-    return (unembed(params.unembed, x, tied=False),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+def rwkv_forward(params: RwkvLM, tokens: torch.Tensor, cfg,
+                 *, for_train: bool = False, return_hidden: bool = False):
+    """tokens (B, S) -> (logits (B,S,V) float32, or with
+    ``return_hidden`` the final hidden states, and aux 0.0);
+    ``for_train`` rematerializes each layer under ``cfg.remat``."""
+    x = apply_norm("layernorm", params.ln_in, embed(params.embed, tokens))
+    for lp in params.layers:
+        x, _ = remat(cfg, _layer, lp, x, cfg, for_train=for_train)
+    x = apply_norm("layernorm", params.ln_f, x)
+    out = x if return_hidden else unembed(params.unembed, x, tied=False)
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def rwkv_loss(params: RwkvLM, batch: dict, cfg) -> torch.Tensor:
+    """Chunked cross-entropy over the untied head."""
+    h, _ = rwkv_forward(params, batch["tokens"], cfg, for_train=True,
+                        return_hidden=True)
+    return chunked_cross_entropy(h, params.unembed, batch["labels"],
+                                 tied=False)
 
 
 def init_rwkv_state(cfg, batch, device=None):

@@ -10,9 +10,11 @@ once a call and shared by every layer. The JAX package's sharding hints
 (``pshint.constrain``) are no-ops on one device and have no counterpart
 here; the LM's parallel layer is ROADMAP.md queue 1 step 2e.
 
-The parameters do not require gradients, so nothing here records an
-autograd graph: the training half (loss, rematerialization, backward) is
-step 2c.
+Training (``lm_loss``) runs the stack with ``for_train``: each layer, the
+lead layers too, is rematerialized under ``cfg.remat`` (``layers.remat``,
+the reference's ``jax.checkpoint`` of its layer scan body), and the loss
+is the chunked cross-entropy of the final hidden states plus 0.01 times
+the MoE load-balance loss.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ import torch
 from torch import nn
 
 from . import attention as attn
-from .layers import (MLP, Norm, _param, apply_norm, dense_init, embed,
-                     embed_init, mlp, rope_freqs, unembed)
+from .layers import (MLP, Norm, _param, apply_norm, chunked_cross_entropy,
+                     dense_init, embed, embed_init, mlp, remat, rope_freqs,
+                     unembed)
 from .moe import MoE, moe_mlp
 
 
@@ -162,22 +165,30 @@ def _mlp_block(block: Block, x, cfg, moe_stats=None):
     return x + out, aux
 
 
+def _block_seq(block: Block, x, cfg, positions, inv_freq):
+    x, cache = _attn_seq(block, x, cfg, positions, inv_freq)
+    x, aux = _mlp_block(block, x, cfg)
+    return x, aux, cache
+
+
 def forward_embeds(params: TransformerLM, x: torch.Tensor, cfg, positions,
-                   *, collect_cache: bool = False):
+                   *, collect_cache: bool = False, for_train: bool = False):
     """Run the layer stack on embedded inputs x (B, S, d).
 
     Returns (hidden, aux_loss, caches|None). Collected caches are the
     reference's ``(lead, stack)`` pair, each None or a pair of tensors
     stacked on a leading layer axis: ``(k, v)`` ``(L, B, S, KVH, hd)``,
     or with MLA ``(c, kr)`` ``(L, B, S, kv_lora)`` and ``(L, B, S, dr)``.
+    With ``for_train`` and ``cfg.remat`` each layer (lead layers too) is
+    rematerialized in backward.
     """
     inv_freq = rope_freqs(_rope_dim(cfg), cfg.rope_theta, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_lead = _n_lead(cfg)
     collected = []
     for block in params.blocks():
-        x, cache = _attn_seq(block, x, cfg, positions, inv_freq)
-        x, a = _mlp_block(block, x, cfg)
+        x, a, cache = remat(cfg, _block_seq, block, x, cfg, positions,
+                            inv_freq, for_train=for_train)
         aux = aux + a
         if collect_cache:
             collected.append(cache)
@@ -201,11 +212,29 @@ def logits_from_hidden(params: TransformerLM, x: torch.Tensor,
 
 def lm_forward(params: TransformerLM, tokens: torch.Tensor, cfg):
     """tokens (B, S) -> (logits (B,S,V) float32, aux_loss)."""
+    x, aux = lm_hidden(params, tokens, cfg)
+    return logits_from_hidden(params, x, cfg), aux
+
+
+def lm_hidden(params: TransformerLM, tokens: torch.Tensor, cfg,
+              *, for_train: bool = False):
+    """tokens (B, S) -> (final hidden states (B, S, d), aux_loss)."""
     B, S = tokens.shape
     x = embed(params.embed, tokens)
     x, aux, _ = forward_embeds(params, x, cfg,
-                               _positions(B, S, tokens.device))
-    return logits_from_hidden(params, x, cfg), aux
+                               _positions(B, S, tokens.device),
+                               for_train=for_train)
+    return x, aux
+
+
+def lm_loss(params: TransformerLM, batch: dict, cfg) -> torch.Tensor:
+    """The training objective: chunked cross-entropy of the next tokens
+    plus 0.01 times the MoE load-balance loss."""
+    h, aux = lm_hidden(params, batch["tokens"], cfg, for_train=True)
+    w = params.embed if cfg.tie_embeddings else params.unembed
+    loss = chunked_cross_entropy(h, w, batch["labels"],
+                                 tied=cfg.tie_embeddings)
+    return loss + 0.01 * aux
 
 
 def lm_prefill(params: TransformerLM, tokens: torch.Tensor, cfg,

@@ -1,4 +1,4 @@
-"""repro_torch's attention (the forward half) vs the JAX package, on the CPU.
+"""repro_torch's attention vs the JAX package, on the CPU.
 
 The forward cases of ``tests/test_attention.py``: the chunked online-
 softmax prefill against the S^2 oracle at chunks 4/7/16/64, windows
@@ -6,7 +6,11 @@ softmax prefill against the S^2 oracle at chunks 4/7/16/64, windows
 against a prefill row; the ring-buffer window cache; bf16 inputs with
 float32 accumulation. Every port function takes the same seeded numpy
 inputs as its JAX counterpart and is held to it at max-abs 1e-5 in
-float32, and at the reference test's own bar in bf16.
+float32, and at the reference test's own bar in bf16. The flash
+backward (``_Flash``) against ``jax.grad`` of the JAX ``flash_attention``
+(its ``custom_vjp``): causal chunk 4, window 3, non-causal, GQA, a KV
+length no chunk divides and a query offset, at the reference test's 5e-5
+in float32, and a bf16 case.
 """
 
 import types
@@ -16,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from repro.models import attention as ja
@@ -214,3 +219,81 @@ def test_gqa_prefill_and_decode_match_jax(window):
         _close(got, want)
         _close(tk, jk)
         _close(tv, jv)
+
+
+# --------------------------------------------------------------------------
+# the flash backward
+# --------------------------------------------------------------------------
+
+GRAD_BAR = 5e-5     # tests/test_attention.py: custom VJP against autodiff
+GRAD_CASES = {
+    "causal-chunk4": dict(shape=dict(B=1, Sq=8, Skv=8, H=2, KVH=1, D=4),
+                          kw=dict(causal=True, chunk=4)),
+    "window3": dict(shape=dict(B=1, Sq=10, Skv=10, H=2, KVH=2, D=4),
+                    kw=dict(causal=True, window=3, chunk=4)),
+    "noncausal": dict(shape=dict(B=2, Sq=8, Skv=24, H=4, KVH=2, D=8),
+                      kw=dict(causal=False, chunk=8)),
+    "gqa": dict(shape=dict(B=2, Sq=12, Skv=12, H=8, KVH=2, D=8),
+                kw=dict(causal=True, chunk=4)),
+    "skv-not-multiple": dict(shape=dict(B=2, Sq=13, Skv=13, H=4, KVH=2,
+                                        D=8),
+                             kw=dict(causal=True, chunk=5)),
+    "q-offset": dict(shape=dict(B=2, Sq=5, Skv=13, H=4, KVH=2, D=8),
+                     kw=dict(causal=True, chunk=4, q_offset=8)),
+}
+
+
+def _flash_grads_jax(q, k, v, dtype, kw):
+    def loss(q, k, v):
+        out = ja.flash_attention(q, k, v, **kw)
+        return jnp.sum(out.astype(jnp.float32) ** 2)
+    return jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v, dtype=dtype))
+
+
+def _flash_grads_port(q, k, v, dtype, kw):
+    ts = [t.requires_grad_(True) for t in _t(q, k, v, dtype=dtype)]
+    out = ta.flash_attention(*ts, **kw)
+    return torch.autograd.grad((out.float() ** 2).sum(), ts)
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_flash_grads_match_jax(case):
+    c = GRAD_CASES[case]
+    q, k, v = _qkv(seed=3, **c["shape"])
+    want = _flash_grads_jax(q, k, v, jnp.float32, c["kw"])
+    got = _flash_grads_port(q, k, v, torch.float32, c["kw"])
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        _close(g, w, GRAD_BAR)
+
+
+def test_flash_grads_match_autograd_through_ref():
+    """The backward equals autograd through the S^2 oracle (the
+    reference's own check, on the port alone)."""
+    q, k, v = _qkv(B=1, Sq=8, Skv=8, H=2, KVH=1, D=4, seed=3)
+    got = _flash_grads_port(q, k, v, torch.float32,
+                            dict(causal=True, chunk=4))
+    ts = [t.requires_grad_(True) for t in _t(q, k, v)]
+    ref = torch.autograd.grad(
+        (ta.attention_ref(*ts, causal=True) ** 2).sum(), ts)
+    for g, r in zip(got, ref):
+        _close(g, r.detach().numpy(), GRAD_BAR)
+
+
+def test_flash_grads_bf16():
+    """bf16 inputs: gradients in bf16, within the bf16 bar of JAX's."""
+    q, k, v = _qkv(B=2, Sq=12, Skv=12, H=4, KVH=2, D=8, seed=5)
+    kw = dict(causal=True, chunk=4)
+    want = _flash_grads_jax(q, k, v, jnp.bfloat16, kw)
+    got = _flash_grads_port(q, k, v, torch.bfloat16, kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        scale = float(np.abs(np.asarray(w, np.float32)).max())
+        _close(g, w, BF16_BAR * scale)
+
+
+def test_flash_without_grad_records_no_graph():
+    """Inputs that do not require grad take the plain forward."""
+    q, k, v = _t(*_qkv(seed=1))
+    out = ta.flash_attention(q, k, v, causal=True, chunk=4)
+    assert out.grad_fn is None

@@ -1,10 +1,10 @@
 """repro_torch's subpackages export what the JAX package's export.
 
-Every name that ``src/repro/{core,kernels,runtime,configs,models,data}/
-__init__.py`` imports must import from the port's counterpart, or stand
-on the short list of names the port does not carry yet; the JAX
-``launch`` package exports nothing, so its ported modules (``mesh``,
-``serve``) are held name for name. Importing the subpackages builds no
+Every name that ``src/repro/{core,kernels,runtime,configs,models,data,
+optim,checkpoint}/__init__.py`` imports must import from the port's
+counterpart, or stand on the short list of names the port does not carry
+yet; the JAX ``launch`` package exports nothing, so its ported modules
+(``mesh``, ``serve``, ``train``) are held name for name. Importing the subpackages builds no
 CUDA kernel and loads neither JAX nor the JAX package.
 """
 
@@ -21,12 +21,11 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("core", "kernels", "runtime", "configs", "models", "data",
-               "launch")
-# the LM's placement of a parameter tree (ROADMAP.md queue 1 step 2e) and
-# its token pipeline (training, step 2c)
-NOT_YET_PORTED = {("runtime", "reshard_tree"), ("data", "TokenPipeline")}
+               "launch", "optim", "checkpoint")
+# the LM's placement of a parameter tree (ROADMAP.md queue 1 step 2e)
+NOT_YET_PORTED = {("runtime", "reshard_tree")}
 # modules of the JAX launch package the port carries whole
-LAUNCH_MODULES = ("mesh", "serve")
+LAUNCH_MODULES = ("mesh", "serve", "train")
 
 
 def _reference_names(sub: str):
@@ -52,7 +51,10 @@ def test_reference_exports_are_parsed():
     assert {"ReconService", "standard_geometry", "backproject_ref",
             "ModelConfig", "build_model", "ByteTokenizer"} <= {
         n for _, n in CASES}
-    assert {"make_mesh", "BatchedServer"} <= {n for _, n in LAUNCH_CASES}
+    assert {"make_mesh", "BatchedServer", "make_train_step",
+            "TrainState"} <= {n for _, n in LAUNCH_CASES}
+    assert {"TokenPipeline", "adamw_update", "Checkpointer"} <= {
+        n for _, n in CASES}
 
 
 def _reference_definitions(module: str):
@@ -130,6 +132,8 @@ def test_importing_subpackages_builds_nothing():
         "import repro_torch.core, repro_torch.kernels, repro_torch.runtime\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.data\n"
         "import repro_torch.launch.mesh, repro_torch.launch.serve\n"
+        "import repro_torch.launch.train, repro_torch.optim\n"
+        "import repro_torch.checkpoint\n"
         "from repro_torch.kernels import _build, backproject_subline as ks\n"
         "from repro_torch.kernels import forward_project as kf\n"
         "assert _build._loaded == {} and _build.build_log == {}\n"
