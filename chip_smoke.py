@@ -161,6 +161,26 @@ ops a step, device busy and idle share, device time by kernel name, and
 the step's bound (8 N T FLOPs over 989 TFLOP/s plus 26 B a parameter of
 AdamW over 3.35 TB/s). No kernel of K1-K6 or F1 launches in the phase.
 
+The LM's parallel layer and dry run (phase ``[shard]``, after
+``[train]``; no kernel of its own). Meshes are in-process, every entry
+the one card: (a) ``reshard_tree`` takes qwen2.5-3b's parameters (full
+width, 2 layers, float32) from a (4, 2) data x model mesh to (2, 4) and
+back, bit for bit, every entry holding its spec's block; (b) the sharded
+train step (``shard_train_step``) on (data 2, model 2), float32, 2
+layers, 4x256 tokens: two steps from one state, each loss and gnorm
+within 1e-4 (rel) of the unsharded ``make_train_step``'s; (c) qwen2.5-3b
+bf16 at full width and depth on the same mesh: 3 sharded steps beside 3
+unsharded ones from the same seed, step ms, tokens/s, peak memory,
+per-entry state bytes against total / entries, and one step's counted
+FLOPs (``launch.hlo_cost``) against 8 N T; (d) ``shard_decode_step``:
+float32 at 2 layers within 1e-5 (rel) of the unsharded logits, then bf16
+at full width through ``BatchedServer`` with ``[lm]``'s traffic (ms a
+step, tokens' agreement with the unsharded server); (e)
+``compressed_psum`` over the data axis of (4, 2) against the plain sum,
+within n_members x scale / 2 an element; (f) the dry run's qwen2.5-3b x
+decode_32k cell on the abstract (16, 16) mesh, its record and roofline
+row. No kernel of K1-K6 or F1 launches in the phase.
+
 Every phase is a hard failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
@@ -3806,6 +3826,343 @@ def phase_train(seed: int, card: str) -> None:
     print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# the LM's parallel layer: in-process meshes whose every entry is the card
+SHARD_RESHARD = (((4, 2), ("data", "model")), ((2, 4), ("data", "model")))
+SHARD_MESH = ((2, 2), ("data", "model"))
+SHARD_STEP_BAR = 1e-4             # tests/test_distributed.py's bar
+SHARD_DECODE_BAR = 1e-5           # rel max-abs of the logits' max
+SHARD_DECODE_STEPS = 4            # float32 decode steps after the prefill
+SHARD_FULL_STEPS = 3
+SHARD_PSUM = ((4, 2), ("data", "model"), (1024, 1024))  # mesh, member shape
+SHARD_PSUM_AMAX = 3.0             # every member's planted max |g|
+SHARD_DRYRUN = ("qwen2.5-3b", "decode_32k")
+
+
+def _shard_mesh(shape_names):
+    from repro_torch.launch.mesh import make_mesh
+    shape, names = shape_names
+    n = 1
+    for s in shape:
+        n *= s
+    return make_mesh(shape, names, devices=("cuda:0",) * n)
+
+
+def _shard_reshard(seed: int) -> None:
+    """(a) a round trip of full-width parameters between two meshes."""
+    import torch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import build_model
+    from repro_torch.runtime import reshard_tree
+
+    cfg = _lm_cfg("float32", n_layers=TRAIN_CUT)
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    tree = {n: p.detach() for n, p in model.named_parameters()}
+    mesh_a, mesh_b = (_shard_mesh(m) for m in SHARD_RESHARD)
+
+    def spec_fn(mesh):
+        return lambda path, leaf: shd.spec_for_param(path, leaf.shape, mesh)
+
+    t0 = time.perf_counter()
+    t_a = reshard_tree(tree, mesh_a, spec_fn(mesh_a))
+    t_b = reshard_tree(t_a, mesh_b, spec_fn(mesh_b))
+    back = reshard_tree(t_b, mesh_a, spec_fn(mesh_a))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    exact = all(torch.equal(back[n].full(), t) and torch.equal(
+        t_b[n].full(), t) for n, t in tree.items())
+    blocks = all(torch.equal(b, t[st.sharding.block_slices(t.shape, e)])
+                 and b.device == mesh_b.devices[e]
+                 for n, t in tree.items() for st in (t_b[n],)
+                 for e, b in enumerate(st.blocks))
+    named = sum("model" in tuple(st.spec) for st in t_b.values())
+    print(f"[shard] (a) reshard_tree {cfg.name} (full width, {TRAIN_CUT} "
+          f"layers, float32, {len(tree)} tensors): {SHARD_RESHARD[0][0]} -> "
+          f"{SHARD_RESHARD[1][0]} -> {SHARD_RESHARD[0][0]} on cuda:0 x 8 in "
+          f"{ms:.1f} ms (host clock); round trip bit for bit: {exact}; "
+          f"every entry holds its spec's block: {blocks}; {named} tensors "
+          f"name 'model' on the second mesh")
+    require(exact and blocks and named > 0, "[shard] the reshard round "
+            "trip differs")
+    del t_a, t_b, back, tree, model
+    _free_card()
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _shard_train_float32(seed: int) -> None:
+    """(b) two sharded steps against two unsharded ones, float32."""
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import (init_state, make_train_step,
+                                          shard_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.models.model import abstract_params
+
+    cfg = _lm_cfg("float32", n_layers=TRAIN_CUT, remat=False)
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    run = RunConfig(seed=seed, warmup_steps=0)
+    B, S = TRAIN_FULL
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                         global_batch=B, seed=seed)
+    step = make_train_step(model, run, total_steps=100)
+    mesh = _shard_mesh(SHARD_MESH)
+    sstep, _ = shard_train_step(step, model, mesh, abstract_params(cfg),
+                                pipe.batch_at(0))
+    sharded, state = [], init_state(model, run)
+    for i in range(2):
+        state, m = sstep(state, pipe.batch_at(i))
+        sharded.append((float(m["loss"]), float(m["gnorm"])))
+    params = {n: st.full() for n, st in state.params.items()}
+    del state
+    plain, state = [], init_state(model, run)
+    for i in range(2):
+        state, m = step(state, pipe.batch_at(i))
+        plain.append((float(m["loss"]), float(m["gnorm"])))
+    prel = max(float((params[n] - p.detach()).abs().max())
+               / max(float(p.detach().abs().max()), 1e-30)
+               for n, p in state.params.items())
+    for i, ((sl, sg), (ul, ug)) in enumerate(zip(sharded, plain)):
+        print(f"[shard] (b) {LM_ARCH} float32, {TRAIN_CUT} layers, {B}x{S} "
+              f"tokens, mesh {SHARD_MESH[0]}: step {i + 1} loss {sl:.6f} / "
+              f"unsharded {ul:.6f} (rel {_rel(sl, ul):.3e}), gnorm "
+              f"{sg:.6f} / {ug:.6f} (rel {_rel(sg, ug):.3e}); bar "
+              f"{SHARD_STEP_BAR:g}")
+        require(_rel(sl, ul) <= SHARD_STEP_BAR
+                and _rel(sg, ug) <= SHARD_STEP_BAR,
+                f"[shard] sharded step {i + 1} disagrees")
+    print(f"[shard] (b) parameters after 2 steps: rel max-abs {prel:.3e} "
+          f"from the unsharded ones (AdamW's m / sqrt(v) amplifies the "
+          f"gradients' summation order where they are near 0)")
+    del state, model, params
+    _free_card()
+
+
+def _shard_train_full(seed: int, card: str) -> None:
+    """(c) qwen2.5-3b bf16 at full width and depth, sharded and not."""
+    import math
+    import statistics as stats
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.train import (init_state, make_train_step,
+                                          shard_state, shard_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.models.model import abstract_params
+
+    cfg = _lm_cfg("bfloat16", remat=True, remat_policy="nothing")
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    run = RunConfig(seed=seed, warmup_steps=0)
+    B, S = TRAIN_FULL
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                         global_batch=B, seed=seed)
+    step = make_train_step(model, run, total_steps=100)
+    mesh = _shard_mesh(SHARD_MESH)
+    sstep, shardings = shard_train_step(step, model, mesh,
+                                        abstract_params(cfg),
+                                        pipe.batch_at(0))
+    n = sum(p.numel() for p in model.parameters())
+    state = shard_state(init_state(model, run), shardings, donate=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, sharded = [], []
+    for i in range(SHARD_FULL_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = sstep(state, pipe.batch_at(i))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        sharded.append((float(m["loss"]), float(m["gnorm"])))
+    peak = torch.cuda.max_memory_allocated()
+    per_entry = shd.entry_bytes([state.params, state.opt.m, state.opt.v],
+                                mesh)
+    total = sum(p.numel() * p.element_size() for p in model.parameters()) \
+        + 8 * n
+    entries = len(mesh.devices)
+    counter = hlo_cost.OpCounter()
+    with counter:
+        state, _ = sstep(state, pipe.batch_at(SHARD_FULL_STEPS))
+    torch.cuda.synchronize()
+    flops = hlo_cost.analyze(counter.log())["flops"]
+    del state
+    _free_card()
+    plain, state = [], init_state(model, run)
+    for i in range(SHARD_FULL_STEPS):
+        state, m = step(state, pipe.batch_at(i))
+        plain.append((float(m["loss"]), float(m["gnorm"])))
+    del state
+    require(all(math.isfinite(x) for pair in sharded + plain for x in pair),
+            f"[shard] a non-finite loss: {sharded} {plain}")
+    med = stats.median(ms[1:])
+    tokens = B * S
+    print(f"[shard] (c) {LM_ARCH} bf16 at full depth ({n} parameters, remat "
+          f"'nothing'), {B}x{S} tokens, mesh {SHARD_MESH[0]} on cuda:0 x "
+          f"{entries}: losses "
+          + ", ".join(f"{a:.4f} / {b:.4f}" for (a, _), (b, _)
+                      in zip(sharded, plain))
+          + " (sharded / unsharded); gnorms "
+          + ", ".join(f"{a:.4f} / {b:.4f}" for (_, a), (_, b)
+                      in zip(sharded, plain)))
+    print(f"[shard] (c) sharded step ms {', '.join(f'{x:.1f}' for x in ms)} "
+          f"(host clock, synchronized); median after the first {med:.3f} "
+          f"ms, {tokens / med * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; {card}")
+    print(f"[shard] (c) state bytes (parameter, m and v blocks) by entry: "
+          f"{', '.join(f'{b / 1e9:.3f}' for b in per_entry)} GB against "
+          f"total / entries {total / entries / 1e9:.3f} GB (total "
+          f"{total / 1e9:.3f} GB)")
+    print(f"[shard] (c) a sharded step's counted FLOPs {flops:.4e} against "
+          f"8 N T = {8.0 * n * tokens:.4e} ({flops / (8.0 * n * tokens):.4f}"
+          f" of it; {counter.n_ops} ops dispatched)")
+    require(peak < 80 * 10**9, "[shard] the sharded step does not fit")
+    del model, step, sstep
+    _free_card()
+
+
+def _shard_decode(seed: int, card: str) -> None:
+    """(d) the sharded decode step: float32 logits, bf16 served."""
+    import statistics as stats
+    import torch
+    from repro_torch.launch.serve import (BatchedServer, make_decode_fn,
+                                          shard_decode_step)
+    from repro_torch.models import build_model
+    from repro_torch.models.model import abstract_params
+
+    mesh = _shard_mesh(SHARD_MESH)
+    cfg = _lm_cfg("float32", n_layers=TRAIN_CUT)
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    B, S = LM_TOKENS
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + SHARD_DECODE_STEPS),
+                           generator=gen, device=DEVICE)
+    max_len = S + SHARD_DECODE_STEPS
+    fn, _, cspecs = shard_decode_step(model, mesh, abstract_params(cfg), B,
+                                      max_len)
+    _, cache, pos = model.prefill({"tokens": tokens[:, :S]}, max_len)
+    _, ucache, _ = model.prefill({"tokens": tokens[:, :S]}, max_len)
+    plain = make_decode_fn(model)
+    worst = 0.0
+    for i in range(SHARD_DECODE_STEPS):
+        tok = tokens[:, S + i:S + i + 1]
+        got, cache = fn(cache, tok, pos + i)
+        want, ucache = plain(ucache, tok, pos + i)
+        worst = max(worst, float((got - want).abs().max())
+                    / float(want.abs().max()))
+    print(f"[shard] (d) shard_decode_step {LM_ARCH} float32, {TRAIN_CUT} "
+          f"layers, batch {B}, mesh {SHARD_MESH[0]}, cache specs "
+          f"{ {k: tuple(v) for k, v in cspecs.items()} }: "
+          f"{SHARD_DECODE_STEPS} steps, logits rel max-abs {worst:.3e} "
+          f"from the unsharded step (bar {SHARD_DECODE_BAR:g})")
+    require(worst <= SHARD_DECODE_BAR, "[shard] sharded decode disagrees")
+    del model, cache, ucache, fn
+    _free_card()
+
+    cfg = _lm_cfg("bfloat16")
+    model = build_model(cfg, seed=seed, device=DEVICE)
+    out = {}
+    for tag in ("unsharded", "sharded"):
+        server = BatchedServer(cfg, model, slots=LM_SLOTS,
+                               max_len=LM_MAX_LEN)
+        if tag == "sharded":
+            server._decode = shard_decode_step(
+                model, mesh, abstract_params(cfg), LM_SLOTS, LM_MAX_LEN)[0]
+        served = _lm_serve(server, LM_PROMPTS, LM_NEW_TOKENS, 4 * LM_STEPS)
+        require(len(served["done"]) == len(LM_PROMPTS) and all(
+            len(r.out) == LM_NEW_TOKENS for r in served["done"]),
+            f"[shard] {tag} serving did not finish")
+        out[tag] = served
+    pairs = [(a, b) for ra, rb in zip(out["unsharded"]["done"],
+                                      out["sharded"]["done"])
+             for a, b in zip(ra.out, rb.out)]
+    same = sum(a == b for a, b in pairs)
+    print(f"[shard] (d) {LM_ARCH} bf16 at full width, BatchedServer "
+          f"{LM_SLOTS} slots, max_len {LM_MAX_LEN}, decoding through "
+          f"shard_decode_step on {SHARD_MESH[0]}: step median "
+          f"{stats.median(out['sharded']['decode_ms'][1:]):.3f} ms against "
+          f"{stats.median(out['unsharded']['decode_ms'][1:]):.3f} unsharded "
+          f"(host clock); tokens equal to the unsharded server's: {same} "
+          f"of {len(pairs)}; peak memory "
+          f"{out['sharded']['peak'] / 2**30:.3f} GiB; {card}")
+    del model, out
+    _free_card()
+
+
+def _shard_psum(seed: int) -> None:
+    """(e) the int8 all-reduce over the data axis, against the plain
+    sum."""
+    import torch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.optim.grad import compressed_psum
+
+    mesh = _shard_mesh(SHARD_PSUM[:2])
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    g = {}
+    for e in range(len(mesh.devices)):
+        t = torch.randn(SHARD_PSUM[2], generator=gen, device=DEVICE)
+        t = t.clamp(-SHARD_PSUM_AMAX, SHARD_PSUM_AMAX)
+        t.view(-1)[e] = SHARD_PSUM_AMAX        # every member's max |g|
+        g[e] = t
+    total, _ = compressed_psum(g, mesh, "data")
+    n = mesh.axis_size("data")
+    scale = SHARD_PSUM_AMAX / 127.0
+    worst = 0.0
+    for e in range(len(mesh.devices)):
+        members = shd.group(mesh, e, [a for a in mesh.axis_names
+                                      if a != "data"])
+        want = sum(g[m].double() for m in members)
+        worst = max(worst, float((total[e].double() - want).abs().max()))
+    bound = n * scale / 2 * (1 + 1e-5)
+    print(f"[shard] (e) compressed_psum over 'data' of {SHARD_PSUM[0]}, "
+          f"members {SHARD_PSUM[2]} float32 with max |g| {SHARD_PSUM_AMAX}: "
+          f"max abs {worst:.4e} from the plain sum, bound n x scale / 2 = "
+          f"{n * scale / 2:.4e}")
+    require(worst <= bound, "[shard] compressed_psum exceeds its int8 bound")
+
+
+def _shard_dryrun() -> None:
+    """(f) one dry-run cell on the abstract production mesh."""
+    import tempfile
+    from repro_torch.launch import dryrun, roofline
+
+    arch, shape = SHARD_DRYRUN
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=tmp,
+                              verbose=False)
+        require(rec["status"] == "ok", f"[shard] dry run: {rec.get('error')}")
+        require(dryrun.reanalyze(tmp) == 1, "[shard] reanalyze")
+        rows = [roofline.terms_for(r) for r in roofline.load_dir(tmp)]
+    print(f"[shard] (f) dry run {arch} x {shape} on the abstract (16, 16) "
+          f"mesh in {rec['run_s']} s, {rec['ops_dispatched']} ops: "
+          + json.dumps({k: rec[k] for k in ("memory", "cost",
+                                            "collectives")}))
+    print("[shard] (f) roofline (H100 SXM constants):\n"
+          + roofline.markdown_table(rows).rstrip())
+
+
+def phase_shard(seed: int, card: str) -> None:
+    """The LM's parallel layer and dry run on the card: (a) reshard, (b)
+    the float32 sharded train step, (c) the bf16 one at full width, (d)
+    the sharded decode step, (e) the int8 all-reduce, (f) a dry-run cell.
+    No kernel of K1-K6 or F1 lies on this path."""
+    t_phase = time.perf_counter()
+    print(f"[shard] {LM_ARCH} on in-process meshes of the one card; {card}")
+    before = launches()
+    _shard_reshard(seed)
+    _shard_train_float32(seed)
+    _shard_train_full(seed, card)
+    _shard_decode(seed, card)
+    _shard_psum(seed)
+    _shard_dryrun()
+    n = sum(c - before.get(k, 0) for k, c in launches().items())
+    print(f"[shard] kernel launches of K1-K6 and F1 in the phase: {n}")
+    require(n == 0, "[shard] a CT kernel launched in the parallel phase")
+    print(f"[shard] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3859,6 +4216,8 @@ def main(argv=None) -> int:
     # the LM trained: no kernel of its own (the reference's training path
     # reaches no pl.pallas_call)
     phase_train(args.seed, card)
+    # the LM's parallel layer and the dry run: no kernel of its own either
+    phase_shard(args.seed, card)
     for name, row in rows.items():
         row["launches_batch"] = (batch.get(name, 0) + stream.get(name, 0)
                                  + service.get(name, 0))

@@ -89,3 +89,12 @@ def fdk_filter_chunk(projections: torch.Tensor, geom: CTGeometry,
     dtheta = 2.0 * math.pi / int(n_proj_total)
     scale = 0.5 * dtheta * du_virt * d * d
     return (filt * scale).to(torch.float32)
+
+
+def fdk_preweight_and_filter(projections: torch.Tensor,
+                             geom: CTGeometry) -> torch.Tensor:
+    """(np, nh, nw) raw projections -> filtered projections, same shape.
+
+    Whole-set form: one chunk spanning every projection.
+    """
+    return fdk_filter_chunk(projections, geom, projections.shape[0])

@@ -325,6 +325,11 @@ def get_variant(name: str) -> Callable:
     return get_spec(name).fn
 
 
+def uses_symmetry(name: str) -> bool:
+    """Whether a variant's math assumes the volume-centered O3 mirror."""
+    return get_spec(name).uses_symmetry
+
+
 def slab_safe_variant(name: str) -> str:
     """Variant to run on an arbitrary (non-centered) Z-slab."""
     spec = get_spec(name)

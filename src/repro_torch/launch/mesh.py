@@ -88,6 +88,19 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return make_mesh(shape, axes)
 
 
+def make_abstract_mesh(shape: Sequence[int], names: Sequence[str]) -> Mesh:
+    """A mesh of ``shape`` whose every entry is the ``meta`` device: the
+    dry run's stand-in for a deployment's cards (the reference's
+    placeholder host devices). Steps on it move shapes, not data. Only
+    the dry run builds one; entry points refuse ``meta``."""
+    shape = tuple(int(s) for s in shape)
+    names = tuple(str(n) for n in names)
+    if len(shape) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"a mesh needs one distinct name an axis: shape "
+                         f"{shape}, names {names}")
+    return Mesh((torch.device("meta"),) * math.prod(shape), shape, names)
+
+
 def make_host_mesh() -> Mesh:
     """An (n, 1) ("data", "model") mesh over every visible card (raises
     without one)."""

@@ -8,9 +8,10 @@ family whose prefill takes tokens alone (dense, moe, hybrid, ssm): a
 decode state is a nested dict of tensors, each with its batch on axis
 1. As in the reference, it passes only ``{"tokens": ...}`` to
 ``prefill``, so an encdec model (which needs ``"frames"``) or a vlm
-model (``"patches"``) raises ``KeyError`` at admission. The sharded
-decode step (``shard_decode_step``) belongs to the LM's parallel layer
-(ROADMAP.md queue 1 step 2e).
+model (``"patches"``) raises ``KeyError`` at admission.
+``shard_decode_step`` runs the decode step on an in-process mesh
+(``launch.sharding``): parameters and decode state laid out by the
+reference's rules.
 """
 
 from __future__ import annotations
@@ -37,18 +38,92 @@ def decode_state_like(model, batch: int, max_len: int):
     return model.init_decode_state(batch, max_len, device="meta")
 
 
-def shard_decode_step(model, mesh, abstract_params, batch: int,
-                      max_len: int):
-    """The JAX package's sharded decode step."""
-    from repro_torch.runtime.executor import _unported
-    raise _unported("shard_decode_step (the LM's parallel layer)", "2e")
-
-
 def _tree_map(fn, *trees):
     """``fn`` over the leaves of nested dicts of the same structure."""
     if isinstance(trees[0], dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
+
+
+def shard_decode_step(model, mesh, abstract_params, batch: int,
+                      max_len: int):
+    """The decode step of ``model`` on ``mesh``. Returns ``(fn,
+    cache_like, cspecs)`` as the reference does: ``cache_like`` the
+    decode state's ``meta`` tensors, ``cspecs`` its specs
+    (``sharding.cache_specs``, batch on dim 1 over ``("pod", "data")``).
+
+    The parameters are laid out now, by ``sharding.param_specs(
+    abstract_params)``, from ``model``'s current values. ``fn(cache,
+    token, pos) -> (logits, cache)``: ``cache`` laid out by ``cspecs``
+    (a tree of ``ShardedTensor``, updated in place and returned) or a
+    plain decode state, which is laid out, stepped and written back in
+    place (so ``BatchedServer`` can decode through ``fn``). Each batch
+    replica all-gathers the parameters into ``model`` on its first entry
+    (which must lie on ``model``'s device) and its share of the state (the blocks over the other axes), runs the
+    unsharded decode step on it, and each entry keeps its own block of
+    the result; the logits, (batch, 1, V) float32, are all-gathered onto
+    the mesh's first entry. ``model``'s own parameters are the gather's
+    target (they hold the laid-out values after a call).
+    """
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.train import _check_replicas
+
+    pspecs = shd.param_specs(abstract_params, mesh)
+    cache_like = decode_state_like(model, batch, max_len)
+    cspecs = shd.cache_specs(cache_like, mesh, model.cfg)
+    params = {n: shd.ShardedTensor.scatter(p, shd.NamedSharding(mesh,
+                                                                pspecs[n]))
+              for n, p in model.named_parameters()}
+    cshard = _tree_map(lambda s: shd.NamedSharding(mesh, s), cspecs)
+    tok_sharding = shd.NamedSharding(
+        mesh, shd.P(shd._batch_axes(mesh, batch), None))
+    axes = tok_sharding.axes()
+    firsts = sorted(shd.replicas(mesh, axes),
+                    key=lambda e: shd.layout(tok_sharding,
+                                             (batch, 1)).index[e])
+    _check_replicas(model, mesh, firsts)
+    home = mesh.devices[0]
+    tparams = dict(model.named_parameters())
+
+    def fn(cache, token, pos):
+        plain = not isinstance(next(iter(_leaves(cache))), shd.ShardedTensor)
+        scache = _tree_map(shd.lay_out, cache, cshard)
+        stok = shd.lay_out(torch.as_tensor(token, device=home)
+                           if not isinstance(token, shd.ShardedTensor)
+                           else token, tok_sharding)
+        parts = []
+        for first in firsts:
+            with shd.on_entry(first):
+                for n, st in params.items():
+                    st.gather_into(tparams[n].data)
+                share = _tree_map(lambda st: st.gather_region(first, axes),
+                                  scache)
+                logits, share = model.decode_step(share, stok.blocks[first],
+                                                  pos)
+                _tree_map(lambda st, v: st.write_region(first, axes, v),
+                          scache, share)
+                parts.append(logits)
+        out = torch.empty((batch,) + tuple(parts[0].shape[1:]),
+                          dtype=parts[0].dtype, device=home)
+        with shd.collective("all-gather", out.numel() * out.element_size()):
+            n = batch // len(parts)
+            for i, part in enumerate(parts):
+                out[i * n:(i + 1) * n].copy_(part)
+        if not plain:
+            return out, scache
+        _tree_map(lambda st, c: st.gather_into(c, record=False), scache,
+                  cache)
+        return out, cache
+
+    return fn, cache_like, cspecs
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # --------------------------------------------------------------------------

@@ -8,8 +8,9 @@ norm, then AdamW. The state's parameters are the module's own, updated
 in place under ``no_grad``, and the AdamW state is keyed by their names.
 ``train`` wires ``TokenPipeline``, ``Checkpointer``, ``FaultTolerantLoop``
 and ``StragglerMonitor`` into a runnable trainer
-(``examples/train_lm_torch.py``). The sharded step of a mesh
-(``shard_train_step``) belongs to the LM's parallel layer.
+(``examples/train_lm_torch.py``). ``shard_train_step`` runs the step on
+an in-process mesh (``launch.sharding``): parameters, AdamW moments and
+the batch laid out by the reference's rules.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --smoke --device cpu --steps 20
@@ -31,6 +32,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs import (RunConfig, ShapeConfig, get_config,
                                  get_smoke_config)
 from repro_torch.convert import STACKED
+from repro_torch.launch import sharding as shd
 from repro_torch.models import build_model
 from repro_torch.models.layers import generator
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
@@ -93,14 +95,182 @@ def make_train_step(model, run: RunConfig, total_steps: int):
         return TrainState(params, opt), {"loss": loss, "gnorm": gnorm,
                                          "lr": lr}
 
+    # what shard_train_step reads to build the same step on a mesh
+    step.run, step.total_steps, step.decay = run, total_steps, decay
     return step
 
 
 def shard_train_step(step_fn, model, mesh, abstract_params, batch_like):
-    """The JAX package's step, jitted with explicit shardings on a
-    mesh."""
-    from repro_torch.runtime.executor import _unported
-    raise _unported("shard_train_step (the LM's parallel layer)", "2e")
+    """The step of ``step_fn`` (from :func:`make_train_step`, whose run
+    config, horizon and decay it reads) on ``mesh``. Returns ``(step,
+    state_shardings)`` as the reference does: parameters laid out by
+    ``sharding.param_specs(abstract_params)``, the AdamW moments by
+    ``optimizer_specs`` (mirroring them), the batch by ``batch_specs``
+    (its leading dim over ``("pod", "data")``); the metrics are
+    replicated scalars on the mesh's first entry.
+
+    ``step(state, batch) -> (state, metrics)`` takes a state laid out by
+    ``state_shardings`` (``shard_state``) or a plain one, which it lays
+    out first (as a jitted step's ``in_shardings`` would), and returns the
+    state laid out. Each batch replica (the entries at one coordinate of
+    the batch's axes) all-gathers the parameters into ``model`` on its
+    first entry, which must lie on ``model``'s device, runs the unsharded
+    loss and gradients on its share of the
+    batch, and reduce-scatters the gradients into every entry's float32
+    block; the loss and gradients are the replicas' mean. The global norm
+    is the sum of the distinct blocks' squares; the clip and AdamW, which
+    work element by element, update every entry's blocks. ``model``'s own
+    parameters are the gather's target: after a step they hold the
+    pre-update values, not the state's.
+
+    This shards storage and the batch, not the model's compute: a
+    replica computes on one entry, so one card shows no tensor-parallel
+    scaling. ``abstract_params`` is ``models.model.abstract_params``'s
+    (``meta`` tensors), the counterpart of ``jax.eval_shape(model.init)``.
+    """
+    pspecs = shd.param_specs(abstract_params, mesh)
+    return sharded_step(step_fn, model, mesh, pspecs,
+                        shd.optimizer_specs(pspecs),
+                        shd.batch_specs(batch_like, mesh))
+
+
+def _check_replicas(model, mesh, firsts) -> None:
+    """Every batch replica computes in ``model`` (the gather's target), so
+    its first entry must lie on ``model``'s device."""
+    off = [str(mesh.devices[e]) for e in firsts
+           if mesh.devices[e] != model.device]
+    if off:
+        raise ValueError(f"batch replicas start on {off}, the model lies on "
+                         f"{model.device}: a replica computes in the model")
+
+
+def sharded_step(step_fn, model, mesh, pspecs, ospecs, bspecs):
+    """:func:`shard_train_step` with its specs given: ``pspecs`` by
+    parameter name, ``ospecs`` an ``AdamWState`` of specs, ``bspecs`` by
+    batch key (the dry run shards a microbatched batch on its second
+    dim)."""
+    from repro_torch.optim import AdamWState
+
+    def nshard(specs):
+        return {k: shd.NamedSharding(mesh, s) for k, s in specs.items()}
+
+    state_shardings = TrainState(
+        params=nshard(pspecs),
+        opt=AdamWState(step=shd.NamedSharding(mesh, shd.P()),
+                       m=nshard(ospecs.m), v=nshard(ospecs.v)))
+    bshard = nshard(bspecs)
+    batch_axes = set().union(*(s.axes() for s in bshard.values()))
+    firsts = shd.replicas(mesh, batch_axes)
+    _check_replicas(model, mesh, firsts)
+    run, total_steps, decay = step_fn.run, step_fn.total_steps, step_fn.decay
+    home = mesh.devices[0]
+    tparams = dict(model.named_parameters())
+
+    def step(state, batch):
+        state = shard_state(state, state_shardings)
+        plain = _on_device({k: v for k, v in batch.items()
+                            if not isinstance(v, shd.ShardedTensor)}, home)
+        batch = {k: shd.lay_out(plain.get(k, v), bshard[k])
+                 for k, v in batch.items()}
+        lr = cosine_warmup(state.opt.step, base_lr=run.lr,
+                           warmup_steps=run.warmup_steps,
+                           total_steps=total_steps)
+        grads = {n: shd.ShardedTensor.zeros(st.shape, torch.float32,
+                                            st.sharding)
+                 for n, st in state.params.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32, device=home)
+        for r, first in enumerate(firsts):
+            with shd.on_entry(first):
+                for n, st in state.params.items():
+                    st.gather_into(tparams[n].data)
+                    tparams[n].requires_grad_(True)
+                share = {k: v.blocks[first] for k, v in batch.items()}
+                if run.microbatch:
+                    loss, g = accumulate_gradients(model.loss, tparams,
+                                                   share)
+                else:
+                    loss, g = value_and_grad(model.loss, tparams, share)
+            for n in tparams:
+                shd.reduce_scatter_add(grads[n], g.pop(n), record=r == 0)
+            loss_sum = loss_sum + loss.to(home)
+        inv = 1.0 / len(firsts)
+        loss = loss_sum * inv
+        with torch.no_grad():
+            if len(firsts) > 1:
+                for gs in grads.values():
+                    for b in gs.blocks:
+                        b.mul_(inv)
+            gnorm = _clip_blocks(grads, run.grad_clip, home)
+            opt = _adamw_blocks(state, grads, lr, run, decay)
+        return TrainState(state.params, opt), {"loss": loss,
+                                               "gnorm": gnorm, "lr": lr}
+
+    return step, state_shardings
+
+
+def _clip_blocks(grads: dict, max_norm: float, home) -> torch.Tensor:
+    """``optim.clip_by_global_norm`` over laid-out float32 gradients: the
+    norm from every distinct block once, the scale applied to every
+    entry's block. Returns the norm (on ``home``)."""
+    sq = torch.zeros((), dtype=torch.float32, device=home)
+    for gs in grads.values():
+        for e in gs.representatives():
+            sq = sq + torch.sum(gs.blocks[e] ** 2).to(home)
+    gn = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    for gs in grads.values():
+        for b in gs.blocks:
+            b.mul_(scale.to(b.device))
+    return gn
+
+
+def _adamw_blocks(state: TrainState, grads: dict, lr, run, decay):
+    """``optim.adamw_update`` on every entry's blocks, in place, one call
+    a device; returns the new ``AdamWState`` (its step on the state's
+    device)."""
+    from repro_torch.optim import AdamWState
+
+    by_dev: dict = {}
+    for n, st in state.params.items():
+        for e, b in enumerate(st.blocks):
+            key = f"{n}@{e}"
+            d = by_dev.setdefault(b.device, ({}, {}, {}, {}, {}))
+            d[0][key] = b
+            d[1][key] = grads[n].blocks[e]
+            d[2][key] = state.opt.m[n].blocks[e]
+            d[3][key] = state.opt.v[n].blocks[e]
+            d[4][key] = decay[n]
+    for dev, (p, g, m, v, dec) in by_dev.items():
+        adamw_update(p, g, AdamWState(step=state.opt.step.to(dev), m=m, v=v),
+                     lr=lr.to(dev), weight_decay=run.weight_decay,
+                     decay=dec)
+    return AdamWState(step=state.opt.step + 1, m=state.opt.m, v=state.opt.v)
+
+
+def shard_state(state: TrainState, state_shardings: TrainState, *,
+                donate: bool = False) -> TrainState:
+    """``state`` laid out by ``state_shardings`` (``shard_train_step``'s):
+    each leaf scattered (or kept, where it is laid out so already), the
+    step on the mesh's first entry. With ``donate`` the plain leaves are
+    removed from ``state``'s dicts as they are laid out, so a moment's
+    whole tensor is freed before the next is copied (the reference's
+    ``donate_argnums``); ``state`` is then emptied."""
+    from repro_torch.optim import AdamWState
+
+    def place(tree, shardings):
+        out = {}
+        for n in list(shardings):
+            leaf = tree.pop(n) if donate else tree[n]
+            out[n] = shd.lay_out(leaf, shardings[n])
+            del leaf
+        return out
+
+    home = state_shardings.opt.step.mesh.devices[0]
+    return TrainState(
+        params=place(state.params, state_shardings.params),
+        opt=AdamWState(step=state.opt.step.to(home),
+                       m=place(state.opt.m, state_shardings.opt.m),
+                       v=place(state.opt.v, state_shardings.opt.v)))
 
 
 def init_state(model, run: RunConfig) -> TrainState:

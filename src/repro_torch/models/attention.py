@@ -296,9 +296,13 @@ def gqa_qkv(p: GQA, x: torch.Tensor, cfg, positions, inv_freq):
         q = q + p.bq
         k = k + p.bk
         v = v + p.bv
-    q = apply_rope(q.reshape(B, S, H, hd), positions, inv_freq)
-    k = apply_rope(k.reshape(B, S, KVH, hd), positions, inv_freq)
-    return q, k, v.reshape(B, S, KVH, hd)
+    from . import pshint
+    q = pshint.constrain(q.reshape(B, S, H, hd), "heads")
+    k = pshint.constrain(k.reshape(B, S, KVH, hd), "heads")
+    v = pshint.constrain(v.reshape(B, S, KVH, hd), "heads")
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    return q, k, v
 
 
 def gqa_prefill(p: GQA, x, cfg, positions, inv_freq, *, window=None):

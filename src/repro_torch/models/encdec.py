@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import pshint
 from .layers import (MLP, Norm, _param, apply_norm, chunked_cross_entropy,
                      embed, embed_init, mlp, remat, rope_freqs, unembed)
 
@@ -124,7 +125,8 @@ def _dec_layer(lp: DecLayer, x, enc_out, cfg, positions, inv_freq):
     ck, cv = attn.cross_kv(lp.cross, enc_out, cfg)
     x = x + attn.cross_attention(lp.cross, hn, ck, cv, cfg)
     hn = apply_norm(cfg.norm, lp.ln_mlp, x)
-    return x + mlp(lp.mlp, hn, cfg.activation), kv, (ck, cv)
+    x = pshint.constrain(x + mlp(lp.mlp, hn, cfg.activation), "residual")
+    return x, kv, (ck, cv)
 
 
 def decode_seq(params: EncDecLM, tokens: torch.Tensor, enc_out, cfg,

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from . import attention as attn
-from . import rglru
+from . import pshint, rglru
 from .kvcache import recurrent_state, window_cache
 from .layers import MLP, Norm, _param, apply_norm, chunked_cross_entropy, \
     embed, mlp, remat, rope_freqs, unembed
@@ -158,7 +158,7 @@ def _softcap(logits):
 def _unit_train(unit: nn.ModuleDict, x, cfg, positions, inv_freq):
     for layer in unit.values():
         x, _ = _layer_seq(layer, x, cfg, positions, inv_freq)
-    return x
+    return pshint.constrain(x, "residual")
 
 
 def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg,
@@ -175,9 +175,12 @@ def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg,
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, x.device)
     states = []
     if collect_state:
-        for layer in params.layers():
+        per_unit = len(n_units(cfg)[2])
+        for i, layer in enumerate(params.layers()):
             x, st = _layer_seq(layer, x, cfg, positions, inv_freq,
                                collect_state=True)
+            if i < per_unit * len(params.units) and (i + 1) % per_unit == 0:
+                x = pshint.constrain(x, "residual")   # a unit's end
             states.append(st)
     else:
         for unit in params.units:

@@ -167,12 +167,13 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params: MLP, x: torch.Tensor, activation: str = "swiglu"):
+    from . import pshint
     if activation in ("swiglu", "geglu"):
         act = F.silu if activation == "swiglu" else _gelu
-        g = act(x @ params.wi_gate)
-        u = x @ params.wi_up
+        g = act(pshint.constrain(x @ params.wi_gate, "ffn"))
+        u = pshint.constrain(x @ params.wi_up, "ffn")
         return (g * u) @ params.wo
-    return _gelu(x @ params.wi) @ params.wo
+    return _gelu(pshint.constrain(x @ params.wi, "ffn")) @ params.wo
 
 
 # --------------------------------------------------------------------------

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from . import rwkv
+from . import pshint, rwkv
 from .kvcache import rwkv_state
 from .layers import (Norm, _param, apply_norm, chunked_cross_entropy, embed,
                      embed_init, remat, unembed)
@@ -79,7 +79,7 @@ def _layer(lp: RwkvLayer, h, cfg, st=None):
     hn = apply_norm("layernorm", lp.ln_c, h)
     out, cm_state = rwkv.channel_mix_seq(
         lp.cm, hn, None if st is None else {"x_cm": st["x_cm"]})
-    return h + out, {"S": tm_state["S"], "x_tm": tm_state["x_tm"],
+    return pshint.constrain(h + out, "residual"), {"S": tm_state["S"], "x_tm": tm_state["x_tm"],
                      "x_cm": cm_state["x_cm"]}
 
 

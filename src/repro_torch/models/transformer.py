@@ -7,8 +7,8 @@ layer index where the reference stacks a leading layer axis, so its
 parameter tree carries across (``repro_torch.convert.
 lm_params_from_reference``). The layer-invariant RoPE table is computed
 once a call and shared by every layer. The JAX package's sharding hints
-(``pshint.constrain``) are no-ops on one device and have no counterpart
-here; the LM's parallel layer is ROADMAP.md queue 1 step 2e.
+stand at its sites (``pshint.constrain``: "residual" after each layer,
+"heads" and "ffn" in attention and the MLP); they change no value.
 
 Training (``lm_loss``) runs the stack with ``for_train``: each layer, the
 lead layers too, is rematerialized under ``cfg.remat`` (``layers.remat``,
@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import pshint
 from .layers import (MLP, Norm, _param, apply_norm, chunked_cross_entropy,
                      dense_init, embed, embed_init, mlp, remat, rope_freqs,
                      unembed)
@@ -189,6 +190,8 @@ def forward_embeds(params: TransformerLM, x: torch.Tensor, cfg, positions,
     for block in params.blocks():
         x, a, cache = remat(cfg, _block_seq, block, x, cfg, positions,
                             inv_freq, for_train=for_train)
+        # sequence-parallel residual hint (a no-op without a policy)
+        x = pshint.constrain(x, "residual")
         aux = aux + a
         if collect_cache:
             collected.append(cache)

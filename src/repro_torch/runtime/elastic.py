@@ -1,15 +1,19 @@
 """Elastic re-meshing: continue a run on a different device count.
 
-The port carries the pure half of the JAX package's module:
-:func:`remesh_plan` picks the ``(data, model)`` shape that fits a device
-count. :func:`reshard_tree` places a language model's parameter tree on
-a device mesh; it belongs to the LM's parallel layer (ROADMAP.md queue 1
-step 2e), which is not ported yet, and raises.
+Parameters are checkpointed as whole tensors (shard-agnostic), the
+sharding rules are pure functions of (parameter name, mesh), and the
+data pipeline's global batch does not depend on the device count, so a
+restart on another mesh is: build the mesh, recompute the specs, lay the
+restored tree out. :func:`remesh_plan` picks the new mesh shape;
+:func:`reshard_tree` lays the tree out (``launch.sharding``'s
+in-process sharded tensors).
 """
 
 from __future__ import annotations
 
 from typing import Tuple
+
+from repro_torch.launch import sharding as shd
 
 
 def remesh_plan(n_devices: int, *, model_parallel: int) -> Tuple[int, ...]:
@@ -38,6 +42,22 @@ def remesh_plan(n_devices: int, *, model_parallel: int) -> Tuple[int, ...]:
 
 
 def reshard_tree(tree, mesh, spec_fn):
-    """The JAX package's placement of an LM parameter tree on a mesh."""
-    from repro_torch.runtime.executor import _unported
-    raise _unported("reshard_tree (the LM's parallel layer)", "2e")
+    """Lay every leaf of ``tree`` out on ``mesh`` by its spec.
+
+    ``tree``: nested mappings whose leaves are tensors or
+    ``launch.sharding.ShardedTensor``; ``spec_fn(path, leaf) -> P``, the
+    path the keys joined by ``.`` (a parameter's name, as
+    ``launch.sharding.spec_for_param`` takes it). Every entry of the mesh
+    then holds exactly its block of each leaf, on its own device. A leaf
+    already laid out on another mesh or spec is all-gathered onto its
+    first entry's device and split anew. Works for a fresh placement and
+    for re-placement after an elastic restart. Returns the tree with
+    ``ShardedTensor`` leaves.
+    """
+    def place(prefix, node):
+        if isinstance(node, dict):
+            return {k: place(f"{prefix}{k}.", v) for k, v in node.items()}
+        spec = spec_fn(prefix[:-1], node)
+        return shd.lay_out(node, shd.NamedSharding(mesh, spec))
+
+    return place("", tree)

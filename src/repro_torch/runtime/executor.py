@@ -104,12 +104,6 @@ from repro_torch.runtime.planner import (
 from repro_torch.runtime.straggler import FleetStragglerBoard
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
-        f"item {item})")
-
-
 # --------------------------------------------------------------------------
 # Compile: the keyed program cache
 # --------------------------------------------------------------------------

@@ -1017,3 +1017,63 @@ def test_dense_lm_on_card_matches_cpu(cuda):
         logits, cache = card_model.decode_step(
             cache, batch["tokens"][:, t:t + 1].cuda(), t)
         assert float((logits[:, -1].cpu() - want[:, t]).abs().max()) < 1e-4
+
+
+def test_reshard_on_card_round_trips(cuda):
+    """``reshard_tree`` of a smoke model's parameters from (4, 2) to
+    (2, 4) on ``("cuda:0",) * 8``: bit for bit, every block on the
+    card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import reshard_tree
+    model = build_model(get_smoke_config("qwen2.5-3b"), seed=0, device="cuda")
+    tree = {n: p.detach() for n, p in model.named_parameters()}
+    meshes = [make_mesh(s, ("data", "model"), ("cuda:0",) * 8)
+              for s in ((4, 2), (2, 4))]
+
+    def spec_fn(mesh):
+        return lambda path, leaf: shd.spec_for_param(path, leaf.shape, mesh)
+
+    t_b = reshard_tree(reshard_tree(tree, meshes[0], spec_fn(meshes[0])),
+                       meshes[1], spec_fn(meshes[1]))
+    for name, t in tree.items():
+        assert torch.equal(t_b[name].full(), t)
+        assert all(b.device.type == "cuda" for b in t_b[name].blocks)
+
+
+def test_sharded_train_step_on_card_matches_cpu(cuda):
+    """The sharded step of a smoke model on ``("cuda:0",) * 4`` against
+    the same step on ``("cpu",) * 4`` from the same state (loss and
+    gnorm, rel 1e-4, two steps)."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (TrainState, init_state,
+                                          make_train_step, shard_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.models.model import abstract_params
+    from repro_torch.optim import adamw_init
+    cfg = get_smoke_config("qwen2.5-3b")
+    run = RunConfig(seed=0, warmup_steps=0)
+    cpu_model = build_model(cfg, seed=0, device="cpu")
+    init_state(cpu_model, run)
+    batch = {k: v for k, v in cpu_model.dummy_batch(
+        ShapeConfig("t", "train", 16, 4)).items()}
+    card_model = build_model(cfg, seed=1, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda:0", card_model)):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        state = TrainState(params=params, opt=adamw_init(params))
+        step = make_train_step(model, run, total_steps=100)
+        mesh = make_mesh((2, 2), ("data", "model"), (dev,) * 4)
+        sstep, _ = shard_train_step(step, model, mesh, abstract_params(cfg),
+                                    batch)
+        s1, m1 = sstep(state, batch)
+        _, m2 = sstep(s1, batch)
+        out[dev] = [(float(m["loss"]), float(m["gnorm"])) for m in (m1, m2)]
+    for (a, b), (c, d) in zip(out["cpu"], out["cuda:0"]):
+        assert abs(a - c) <= 1e-4 * abs(a) and abs(b - d) <= 1e-4 * abs(b)

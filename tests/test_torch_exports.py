@@ -2,10 +2,12 @@
 
 Every name that ``src/repro/{core,kernels,runtime,configs,models,data,
 optim,checkpoint}/__init__.py`` imports must import from the port's
-counterpart, or stand on the short list of names the port does not carry
-yet; the JAX ``launch`` package exports nothing, so its ported modules
-(``mesh``, ``serve``, ``train``) are held name for name. Importing the subpackages builds no
-CUDA kernel and loads neither JAX nor the JAX package.
+counterpart; the JAX ``launch`` package exports nothing, so its modules
+(``mesh``, ``serve``, ``train``, ``sharding``, ``roofline``,
+``hlo_cost``, ``dryrun``) and ``models.pshint`` are held name for name.
+No module of the port raises ``NotImplementedError`` naming a ROADMAP
+item. Importing the subpackages builds no CUDA kernel and loads neither
+JAX nor the JAX package.
 """
 
 import ast
@@ -22,10 +24,12 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("core", "kernels", "runtime", "configs", "models", "data",
                "launch", "optim", "checkpoint")
-# the LM's placement of a parameter tree (ROADMAP.md queue 1 step 2e)
-NOT_YET_PORTED = {("runtime", "reshard_tree")}
-# modules of the JAX launch package the port carries whole
-LAUNCH_MODULES = ("mesh", "serve", "train")
+# every export is ported
+NOT_YET_PORTED = set()
+# modules of the JAX launch package the port carries whole (and pshint)
+LAUNCH_MODULES = ("mesh", "serve", "train", "sharding", "roofline",
+                  "hlo_cost", "dryrun")
+OTHER_MODULES = ("models/pshint", "core/filtering", "core/variants")
 
 
 def _reference_names(sub: str):
@@ -67,6 +71,8 @@ def _reference_definitions(module: str):
 
 LAUNCH_CASES = [(mod, name) for mod in LAUNCH_MODULES
                 for name in _reference_definitions(f"launch/{mod}")]
+OTHER_CASES = [(mod, name) for mod in OTHER_MODULES
+               for name in _reference_definitions(mod)]
 
 
 @pytest.mark.parametrize("mod, name", LAUNCH_CASES,
@@ -75,6 +81,27 @@ def test_reference_launch_names_in_port(mod, name):
     port = importlib.import_module(f"repro_torch.launch.{mod}")
     assert callable(getattr(port, name, None)), \
         f"repro_torch.launch.{mod} lacks {name}"
+
+
+@pytest.mark.parametrize("mod, name", OTHER_CASES,
+                         ids=[f"{m}.{n}" for m, n in OTHER_CASES])
+def test_reference_module_names_in_port(mod, name):
+    """Every public function and class of these reference modules has its
+    counterpart (``fdk_preweight_and_filter`` and ``uses_symmetry`` were
+    the last two)."""
+    port = importlib.import_module("repro_torch." + mod.replace("/", "."))
+    assert callable(getattr(port, name, None)), \
+        f"repro_torch.{mod} lacks {name}"
+
+
+def test_no_module_raises_naming_a_roadmap_item():
+    """No source of the port raises NotImplementedError (the marker of a
+    path not ported yet), and the helper that built it is gone."""
+    src = ROOT / "src" / "repro_torch"
+    hits = [str(p.relative_to(src)) for p in src.rglob("*.py")
+            if "NotImplementedError" in p.read_text()
+            or "_unported" in p.read_text()]
+    assert not hits, hits
 
 
 @pytest.mark.parametrize("sub, name", CASES,
@@ -133,6 +160,9 @@ def test_importing_subpackages_builds_nothing():
         "import repro_torch.configs, repro_torch.models, repro_torch.data\n"
         "import repro_torch.launch.mesh, repro_torch.launch.serve\n"
         "import repro_torch.launch.train, repro_torch.optim\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.hlo_cost\n"
+        "import repro_torch.models.pshint\n"
         "import repro_torch.checkpoint\n"
         "from repro_torch.kernels import _build, backproject_subline as ks\n"
         "from repro_torch.kernels import forward_project as kf\n"

@@ -231,8 +231,31 @@ def test_remesh_plan_rejects_empty_fleet():
 
 
 def test_reshard_tree_waits_for_the_lm_substrate():
-    """The tree placement is the LM substrate's (ROADMAP.md queue 1 item
-    2); the port says so instead of placing anything."""
+    """The tree placement (it raised until the LM's parallel layer was
+    ported): after an elastic restart from 8 devices to 6,
+    ``remesh_plan``'s (3, 2) mesh takes a tree laid out on (4, 2), bit
+    for bit, every entry holding its block (the reference's parity case
+    is in tests/test_torch_parallel.py)."""
+    import torch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime.elastic import reshard_tree
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        reshard_tree({}, None, None)
+    shape = remesh_plan(6, model_parallel=2)
+    assert shape == j_remesh(6, model_parallel=2) == (3, 2)
+    tree = {"layers": {"0": {"mlp": {"wo": torch.arange(
+        72, dtype=torch.float32).reshape(12, 6)}}}}
+    old = make_mesh((4, 2), ("data", "model"), devices=("cpu",) * 8)
+    new = make_mesh(shape, ("data", "model"), devices=("cpu",) * 6)
+
+    def spec_fn(mesh):
+        return lambda path, leaf: shd.spec_for_param(path, leaf.shape, mesh)
+
+    placed = reshard_tree(reshard_tree(tree, old, spec_fn(old)), new,
+                          spec_fn(new))
+    leaf = placed["layers"]["0"]["mlp"]["wo"]
+    want = tree["layers"]["0"]["mlp"]["wo"]
+    assert leaf.spec == shd.P("model", "data") and len(leaf.blocks) == 6
+    assert torch.equal(leaf.full(), want)
+    for e, b in enumerate(leaf.blocks):
+        assert torch.equal(b, want[leaf.sharding.block_slices(want.shape,
+                                                              e)])

@@ -60,3 +60,20 @@ def test_filter_kills_dc():
     filt = fdk_filter_chunk(torch.ones(4, g.nh, g.nw), g, 4).numpy()
     interior = filt[:, :, 16:-16]
     assert np.abs(interior).max() < 0.15 * np.abs(filt).max() + 1e-3
+
+
+@pytest.mark.parametrize("n,det,nproj", [(16, 24, 8), (13, 17, 5)])
+def test_whole_set_filter_matches_jax(n, det, nproj):
+    """``fdk_preweight_and_filter``, the whole-set form: the reference's
+    on the same projections, and the chunk form with every view."""
+    from repro.core.filtering import fdk_preweight_and_filter as j_whole
+    from repro_torch.core.filtering import fdk_preweight_and_filter
+    g = j_geom(n=n, n_det=det, n_proj=nproj)
+    p = np.random.RandomState(n + 1).rand(nproj, g.nh, g.nw).astype(
+        np.float32)
+    geom = standard_geometry(n=n, n_det=det, n_proj=nproj)
+    out = fdk_preweight_and_filter(torch.from_numpy(p), geom)
+    assert rel_rmse(out.numpy(), np.asarray(j_whole(jnp.asarray(p), g))) \
+        < BAR
+    assert torch.equal(out, fdk_filter_chunk(torch.from_numpy(p), geom,
+                                             nproj))

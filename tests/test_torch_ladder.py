@@ -166,3 +166,14 @@ def test_registry_equals_jax_registry():
                 t.proj_loop) == (j.optimizations, j.options,
                                  j.slab_safe_fallback, j.proj_loop)
     tvar._validate_registry()
+
+
+def test_uses_symmetry_matches_jax():
+    """``uses_symmetry`` names the same variants as the reference's, for
+    every variant both registries hold."""
+    names = set(jvar.REGISTRY) & set(tvar.REGISTRY)
+    assert len(names) >= 10
+    for name in sorted(names):
+        assert tvar.uses_symmetry(name) == jvar.uses_symmetry(name), name
+    with pytest.raises(KeyError):
+        tvar.uses_symmetry("no-such-variant")

@@ -166,8 +166,20 @@ def test_server_refusals():
     model = build_model(ModelConfig(**CFG), device="cpu")
     with pytest.raises(ValueError, match="built for"):
         tserve.BatchedServer(ModelConfig(**dict(CFG, name="other")), model)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2e"):
-        tserve.shard_decode_step(model, None, None, 4, 16)
+    # the sharded decode step runs (it raised before the parallel layer
+    # was ported): on a (2, 2) CPU mesh its logits equal the unsharded
+    # step's
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import abstract_params
+    mesh = make_mesh((2, 2), ("data", "model"), devices=("cpu",) * 4)
+    fn, like, cspecs = tserve.shard_decode_step(
+        model, mesh, abstract_params(model.cfg), 4, 16)
+    assert like["k"].device.type == "meta"
+    tok = torch.zeros((4, 1), dtype=torch.long)
+    got, _ = fn(model.init_decode_state(4, 16), tok, 0)
+    want, _ = tserve.make_decode_fn(model)(model.init_decode_state(4, 16),
+                                           tok, 0)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("text", ["", "Back-projection is", "héllo ✓",

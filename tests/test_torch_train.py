@@ -12,8 +12,9 @@ with the real checkpointer and pipeline; one ``make_train_step`` from a
 JAX ``TrainState`` carried across (``convert.train_state_from_
 reference``); ``train()`` as ``tests/test_train_integration.py`` drives
 it (loss falls, resume equals straight through, microbatches equal the
-full batch); the mesh-only paths raise naming step 2e; a model served
-after training records no graph.
+full batch); the mesh paths run (the sharded step, the laid-out
+accumulator, the int8 all-reduce); a model served after training records
+no graph.
 """
 
 import dataclasses
@@ -292,14 +293,37 @@ def test_accumulate_gradients_matches_jax_and_full_batch(carried):
 
 
 def test_mesh_paths_raise_naming_2e(carried):
+    """The paths that raised before the parallel layer was ported now run
+    on a (2, 2) mesh of the CPU (their parity with the reference is in
+    tests/test_torch_parallel.py): the sharded step's loss equals the
+    single step's, the laid-out accumulator's mean equals the unsharded
+    one, the int8 all-reduce returns a total for every entry."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import abstract_params
+
     model, state = _port_state(carried)
-    for call in (lambda: ttrain.shard_train_step(None, model, None, None,
-                                                 None),
-                 lambda: optim.grad.compressed_psum(torch.ones(2), "data"),
-                 lambda: optim.accumulate_gradients(
-                     model.loss, state.params, {}, grad_shardings={})):
-        with pytest.raises(NotImplementedError, match="2e"):
-            call()
+    cfg = get_smoke_config(SMOKE)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=("cpu",) * 4)
+    run = RunConfig(seed=0, warmup_steps=1)
+    step = ttrain.make_train_step(model, run, total_steps=100)
+    sstep, shardings = ttrain.shard_train_step(
+        step, model, mesh, abstract_params(cfg), carried["batch"])
+    _, metrics = sstep(state, carried["batch"])
+    want = float(carried["metrics"]["loss"])
+    assert abs(float(metrics["loss"]) - want) <= 1e-4 * want
+    batch = {k: torch.from_numpy(v.astype(np.int64)).reshape(2, 2, -1)
+             for k, v in carried["batch"].items()}
+    loss, grads = optim.accumulate_gradients(
+        model.loss, state.params, batch, grad_shardings=shardings.params)
+    uloss, ugrads = optim.accumulate_gradients(model.loss, state.params,
+                                               batch)
+    assert float(loss) == float(uloss)
+    assert all(torch.equal(grads[n].full(), ugrads[n]) for n in ugrads)
+    g = {e: torch.full((3,), float(e)) for e in range(4)}
+    total, _ = optim.grad.compressed_psum(g, mesh, "data")
+    assert sorted(total) == [0, 1, 2, 3]
+    assert isinstance(grads["embed"], shd.ShardedTensor)
 
 
 def test_served_after_training_records_no_graph(carried):
