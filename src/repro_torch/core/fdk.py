@@ -111,6 +111,7 @@ def fdk_reconstruct(projections, geom: CTGeometry,
     A fleet's entries and ``device`` are all CUDA devices or all the CPU:
     a card's failed step never re-runs on the CPU.
     """
+    from repro_torch.runtime import telemetry
     from repro_torch.runtime.executor import PlanExecutor, as_fleet_config
 
     if service is not None:
@@ -126,41 +127,42 @@ def fdk_reconstruct(projections, geom: CTGeometry,
             tiling=tiling, memory_budget=memory_budget,
             proj_batch=proj_batch, out=out, schedule=schedule,
             precision=precision, tuning=tuning, **kernel_options)
-    fleet = as_fleet_config(devices)
-    if fleet is not None:
-        # the fleet accumulates each entry's step outputs into a host
-        # volume over the step schedule; explicit contrary choices fail in
-        # the executor's validation
-        out = out or "host"
-        schedule = schedule or "step"
-        if device is None:
-            device = fleet.resolve_devices()[0]
-    if variant == "auto" or tuning is not None:
-        # lookup-only tuned resolution: the config also carries the
-        # executor-level pipeline knobs the plan cannot
-        from repro_torch.runtime.autotune import resolve_config
-        cfg = resolve_config(
-            geom, variant, cache=tuning, device=device, nb=nb,
-            interpret=interpret, tiling=tiling, memory_budget=memory_budget,
-            proj_batch=proj_batch, out=out, schedule=schedule,
-            precision=precision, **kernel_options)
-        if pipeline is None and fleet is None:
-            ex = PlanExecutor.from_config(geom, cfg, device=device)
-        else:                         # an explicit override beats the cache
-            ex = PlanExecutor(geom, cfg.build_plan(geom),
-                              pipeline=cfg.pipeline if pipeline is None
-                              else pipeline,
-                              pipeline_depth=cfg.pipeline_depth, tuned=cfg,
-                              fleet=fleet, device=device)
-        return ex.reconstruct(projections)
-    plan = _build_plan(geom, variant, nb=nb, interpret=interpret,
-                       tiling=tiling, memory_budget=memory_budget,
-                       proj_batch=proj_batch, out=out, schedule=schedule,
-                       precision=precision, **kernel_options)
-    return PlanExecutor(
-        geom, plan, pipeline="sync" if pipeline is None else pipeline,
-        fleet=fleet, device=device,
-    ).reconstruct(projections)
+    with telemetry.span("recon.call"):
+        fleet = as_fleet_config(devices)
+        if fleet is not None:
+            # the fleet accumulates each entry's step outputs into a host
+            # volume over the step schedule; explicit contrary choices fail
+            # in the executor's validation
+            out = out or "host"
+            schedule = schedule or "step"
+            if device is None:
+                device = fleet.resolve_devices()[0]
+        if variant == "auto" or tuning is not None:
+            # lookup-only tuned resolution: the config also carries the
+            # executor-level pipeline knobs the plan cannot
+            from repro_torch.runtime.autotune import resolve_config
+            cfg = resolve_config(
+                geom, variant, cache=tuning, device=device, nb=nb,
+                interpret=interpret, tiling=tiling,
+                memory_budget=memory_budget, proj_batch=proj_batch, out=out,
+                schedule=schedule, precision=precision, **kernel_options)
+            if pipeline is None and fleet is None:
+                ex = PlanExecutor.from_config(geom, cfg, device=device)
+            else:                     # an explicit override beats the cache
+                ex = PlanExecutor(geom, cfg.build_plan(geom),
+                                  pipeline=cfg.pipeline if pipeline is None
+                                  else pipeline,
+                                  pipeline_depth=cfg.pipeline_depth,
+                                  tuned=cfg, fleet=fleet, device=device)
+            return ex.reconstruct(projections)
+        plan = _build_plan(geom, variant, nb=nb, interpret=interpret,
+                           tiling=tiling, memory_budget=memory_budget,
+                           proj_batch=proj_batch, out=out, schedule=schedule,
+                           precision=precision, **kernel_options)
+        return PlanExecutor(
+            geom, plan, pipeline="sync" if pipeline is None else pipeline,
+            fleet=fleet, device=device,
+        ).reconstruct(projections)
 
 
 def sart_step(vol_zyx, projections, geom: CTGeometry, *, relax: float = 0.25,

@@ -46,9 +46,12 @@ that projection samples enter the kernel rounded to bfloat16 while the
 matrices, weights, accumulators and the output stay float32
 (:func:`_precision_adapter`). Solver plans run here too, driven by
 ``runtime.solvers.IterativeExecutor``. Telemetry spans (``compile``,
-``filter.chunk``, ``step.dispatch`` with its roofline args, ``flush`` on
-the flusher thread, ``stream.fold`` and ``stream.tail``) ride every walk
-(``runtime.telemetry``).
+``ingest``, ``geometry.matrices``, ``filter.chunk``, ``filter.stack``,
+``step.dispatch``, ``flush`` on the flusher thread, ``stream.fold`` and
+``stream.tail``) ride every walk (``runtime.telemetry``); those with a
+``record_function`` range under ``REPRO_TRACE_NVTX=1`` (``ingest``,
+``geometry.matrices``, ``filter.*``, ``step.dispatch``) let a profiler
+trace assign the device work they launch.
 
   * The reconstruction fleet: :meth:`PlanExecutor.execute_fleet` (an
     executor built with ``fleet=``, a :class:`FleetConfig`) spreads the
@@ -93,13 +96,13 @@ from repro_torch.core.filtering import fdk_filter_chunk
 from repro_torch.core.geometry import CTGeometry, projection_matrices
 from repro_torch.core.tiling import (
     TileSpec, make_tiles, pad_projection_batch, plan_proj_chunks,
-    tile_working_set_bytes, translate_matrices,
+    translate_matrices,
 )
 from repro_torch.core.variants import get_spec
 from repro_torch.runtime import telemetry
 from repro_torch.runtime.planner import (
     PlanStep, ReconPlan, StepMajorSchedule, build_step_major,
-    partition_steps, resolve_tile_variant, step_cost,
+    partition_steps, resolve_tile_variant,
 )
 from repro_torch.runtime.straggler import FleetStragglerBoard
 
@@ -499,26 +502,6 @@ class _AsyncFlushQueue:
             raise self._error
 
 
-# 8 fused multiply-adds per voxel-view update: the repo's
-# "ct-backproject" cost model (model_flops = 8 * vol^3 * n_views), applied
-# per tile step so trace annotations and the roofline tell one story
-_FLOPS_PER_UPDATE = 8.0
-
-
-def _step_roofline(plan: ReconPlan, step: PlanStep, n_views: int) -> dict:
-    """Span args for one step dispatch: modeled bytes moved (the
-    planner's tile working-set model, ``core.tiling.
-    tile_working_set_bytes``) and FLOPs (``_FLOPS_PER_UPDATE`` per
-    voxel-view update over :func:`~repro_torch.runtime.planner.step_cost`
-    voxels), plus the resulting arithmetic intensity."""
-    ws = int(tile_working_set_bytes(step.call_shape, plan.det_shape_wh,
-                                    nb=plan.nb))
-    flops = _FLOPS_PER_UPDATE * step_cost(step) * int(n_views)
-    return {"bytes": ws, "flops": flops,
-            "ai_flop_per_byte": round(flops / max(ws, 1), 3),
-            "voxels": int(step_cost(step)), "n_views": int(n_views)}
-
-
 class _FilteredChunkProducer:
     """Filter-once projection-chunk source for ``reconstruct``.
 
@@ -543,8 +526,9 @@ class _FilteredChunkProducer:
         """Filtered ``(img_c, mat_c)`` of chunk ``c`` (memoized)."""
         if c not in self._memo:
             s0, s1 = self._chunks[c]
-            with telemetry.span("filter.chunk", chunk=c,
-                                n_views=int(s1 - s0)):
+            with telemetry.span("filter.chunk", nvtx=True) as sp:
+                if sp.live:
+                    sp.set(chunk=c, n_views=int(s1 - s0))
                 self._memo[c] = self._ex._chunk_inputs(
                     self._projections, self._mat_p, s0, s1)
         return self._memo[c]
@@ -556,21 +540,26 @@ class _FilteredChunkProducer:
                 img_s: Optional[torch.Tensor] = None):
         """All chunks, filtered once each, as the chunk grid stack,
         written into ``img_s`` (a zeroed grid: one lane of a batch) or a
-        new one."""
+        new one. The grid's allocation and each chunk's copy into it are
+        ``filter.stack`` spans, beside (not around) the chunks'
+        ``filter.chunk`` spans."""
         geom = self._ex.geom
         dev = self._mat_p.device
-        if img_s is None:
-            img_s = torch.zeros((sched.n_chunks, sched.chunk_size, geom.nw,
-                                 geom.nh), dtype=torch.float32, device=dev)
-        mat_s = torch.empty((sched.n_chunks, sched.chunk_size, 3, 4),
-                            dtype=torch.float32, device=dev)
+        with telemetry.span("filter.stack", nvtx=True):
+            if img_s is None:
+                img_s = torch.zeros((sched.n_chunks, sched.chunk_size,
+                                     geom.nw, geom.nh),
+                                    dtype=torch.float32, device=dev)
+            mat_s = torch.empty((sched.n_chunks, sched.chunk_size, 3, 4),
+                                dtype=torch.float32, device=dev)
         for c in range(sched.n_chunks):
             img_c, mat_c = self.get(c)
             self.drop(c)   # the stack is the only remaining consumer
             n = img_c.shape[0]
-            img_s[c, :n] = img_c
-            # tail chunk -> uniform slot: zero images, repeated matrices
-            mat_s[c] = _pad_mats(mat_c, sched.chunk_size)
+            with telemetry.span("filter.stack", nvtx=True):
+                img_s[c, :n] = img_c
+                # tail chunk -> uniform slot: zero images, repeated matrices
+                mat_s[c] = _pad_mats(mat_c, sched.chunk_size)
         return img_s, mat_s
 
 
@@ -997,9 +986,13 @@ class PlanExecutor:
 
     def _as_input(self, name: str, x) -> torch.Tensor:
         """A float32 tensor on this executor's device: numpy arrays are
-        copied there, tensors must already lie there."""
+        copied there (an ``ingest`` span), tensors must already lie
+        there."""
         if isinstance(x, np.ndarray):
-            return tensor_from_numpy(x, self.device)
+            with telemetry.span("ingest", nvtx=True) as sp:
+                if sp.live:
+                    sp.set(bytes=int(x.nbytes))
+                return tensor_from_numpy(x, self.device)
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a tensor or numpy array, got "
                             f"{type(x).__name__}")
@@ -1023,15 +1016,24 @@ class PlanExecutor:
         return None
 
     def _step_span(self, step: PlanStep, n_views: int, **extra):
-        """Telemetry span for one step's launches, roofline-annotated
-        (bytes / FLOPs / arithmetic intensity, computed only when
-        tracing is live). It measures the enqueue on the host, and names
-        a ``record_function`` range on the profiler's timeline."""
+        """Telemetry span for one step's launches (args computed only
+        when tracing is live). It measures the enqueue on the host, and
+        names a ``record_function`` range on the profiler's timeline."""
         sp = telemetry.span("step.dispatch", nvtx=True)
         if sp.live:
             sp.set(variant=step.variant, call_shape=list(step.call_shape),
-                   **_step_roofline(self.plan, step, n_views), **extra)
+                   n_views=int(n_views), **extra)
         return sp
+
+    def _padded_matrices(self) -> torch.Tensor:
+        """The geometry's per-view matrices on this executor's device,
+        padded to the plan's ``n_proj_padded`` rows (a
+        ``geometry.matrices`` span: the host build and the upload)."""
+        with telemetry.span("geometry.matrices", nvtx=True) as sp:
+            if sp.live:
+                sp.set(n_proj=int(self.geom.n_proj))
+            return _pad_mats(projection_matrices(self.geom, self.device),
+                             self.plan.n_proj_padded)
 
     @staticmethod
     def _flush_host(vol: Optional[np.ndarray], writes) -> None:
@@ -1264,9 +1266,8 @@ class PlanExecutor:
                 f"{plan.n_proj} projections (the FDK angular weighting "
                 f"assumes it), got {projections.shape[0]}; for arbitrary "
                 f"view subsets filter upstream and call backproject()")
-        mat_p = _pad_mats(projection_matrices(self.geom, self.device),
-                          plan.n_proj_padded)
-        producer = _FilteredChunkProducer(self, projections, mat_p)
+        producer = _FilteredChunkProducer(self, projections,
+                                          self._padded_matrices())
         if plan.schedule == "step":
             sched = plan.step_major
             img_s, mat_s = producer.stacked(sched)
@@ -1320,12 +1321,12 @@ class PlanExecutor:
                     f"execute_batch expects {plan.n_proj} projections "
                     f"per request (the plan's full scan), got "
                     f"{p.shape[0]}")
-        mat_p = _pad_mats(projection_matrices(self.geom, self.device),
-                          plan.n_proj_padded)
+        mat_p = self._padded_matrices()
         sched = plan.step_major
-        img_b = torch.zeros((k, sched.n_chunks, sched.chunk_size,
-                             self.geom.nw, self.geom.nh),
-                            dtype=torch.float32, device=self.device)
+        with telemetry.span("filter.stack", nvtx=True):
+            img_b = torch.zeros((k, sched.n_chunks, sched.chunk_size,
+                                 self.geom.nw, self.geom.nh),
+                                dtype=torch.float32, device=self.device)
         for r, p in enumerate(reqs):
             _, mat_s = _FilteredChunkProducer(self, p, mat_p).stacked(
                 sched, img_b[r])
@@ -1734,8 +1735,7 @@ class StreamingExecutor:
         self._chunk_size = plan.chunk_size
         self._max_pending = int(max_pending_chunks)
         self._on_ready = on_ready
-        self._mat_p = _pad_mats(projection_matrices(ex.geom, ex.device),
-                                plan.n_proj_padded)
+        self._mat_p = ex._padded_matrices()
 
         self._cond = threading.Condition()
         self._buffers: Dict[int, torch.Tensor] = {}
@@ -1889,8 +1889,13 @@ class StreamingExecutor:
         """Copy one ready chunk to the device, filter and transpose it:
         ``PlanExecutor._filtered_rows``, the offline walk's own path."""
         s0, s1 = self._chunk_bounds[c]
-        raw = buf.to(self._ex.device, non_blocking=True)
-        with telemetry.span("filter.chunk", chunk=c, n_views=int(s1 - s0)):
+        with telemetry.span("ingest", nvtx=True) as sp:
+            if sp.live:
+                sp.set(bytes=int(buf.nelement() * buf.element_size()))
+            raw = buf.to(self._ex.device, non_blocking=True)
+        with telemetry.span("filter.chunk", nvtx=True) as sp:
+            if sp.live:
+                sp.set(chunk=c, n_views=int(s1 - s0))
             return self._ex._filtered_rows(raw, self._mat_p[s0:s1], s1 - s0)
 
     def filtered(self, c: int):

@@ -38,12 +38,15 @@ threads and serves them from executors it keeps per shape bucket:
     ``close()`` is bit-identical to the chunk-major reconstruction.
   * **introspection**: ``stats()`` returns a :class:`ServiceStats`
     snapshot: per-bucket requests, hits, builds, batches and their fill,
-    stream overlap, and p50/p99 latency streamed into each bucket's
-    histogram as requests finish; ``export_prometheus()`` renders it.
+    stream overlap, and p50/p99 latency (submit to volume) streamed into
+    each bucket's histogram as requests finish; ``export_prometheus()``
+    renders it.
 
-Telemetry: ``request.submit`` and ``stream.open`` instants, and the
+Telemetry: ``request.submit`` and ``stream.open`` instants, the
 ``batch.form``, ``service.dispatch`` and ``service.stream_dispatch``
-spans (``runtime.telemetry``).
+spans, and one ``request.queue`` span a request, from its submit to its
+dispatch, recorded by the worker that dispatches it
+(``runtime.telemetry``).
 
 Usage::
 
@@ -108,7 +111,9 @@ class BucketStats(telemetry.EmitMixin):
     "tuned-measured" (this process ran the autotuner) or "tuned-cache" (a
     persisted winner); ``pipeline`` is its flush discipline.
     ``completed``/``p50_ms``/``p99_ms``/``mean_ms`` stream from the
-    bucket's :class:`LatencyHistogram`.
+    bucket's :class:`LatencyHistogram` of each request's latency, from
+    its ``submit`` to its volume: the queue, the batch former and the
+    dispatch.
 
     Batching: ``dispatches`` counts executor calls (a batch of k requests
     is ONE), so ``mean_occupancy`` = completed requests / dispatches is
@@ -209,10 +214,10 @@ class ServiceStats(telemetry.EmitMixin):
              "completed requests per dispatch",
              [({}, self.mean_occupancy)]),
             ("repro_latency_p50_ms", "gauge",
-             "request latency p50 (merged streamed histograms)",
+             "request latency p50, submit to volume (merged histograms)",
              [({}, self.p50_ms)]),
             ("repro_latency_p99_ms", "gauge",
-             "request latency p99 (merged streamed histograms)",
+             "request latency p99, submit to volume (merged histograms)",
              [({}, self.p99_ms)]),
             ("repro_streams_total", "counter",
              "streaming sessions opened", [({}, self.streams)]),
@@ -273,7 +278,9 @@ class _Request:
     ``deadline_s`` is an ABSOLUTE ``time.perf_counter`` deadline (None =
     none); ``priority > 0`` marks a latency-critical request that never
     waits for peers. ``solver_kw`` carries an iterative request's loop
-    knobs; ``trace_id`` links the dispatch span back to the request."""
+    knobs; ``trace_id`` links the dispatch span back to the request.
+    ``submit_s`` is the ``time.perf_counter`` of its ``submit``: its
+    latency and its ``request.queue`` span count from there."""
 
     fut: Future
     projections: object
@@ -285,6 +292,7 @@ class _Request:
     priority: int = 0
     solver_kw: Optional[Dict] = None
     trace_id: str = ""
+    submit_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -589,12 +597,14 @@ class ReconService:
         return self._effective_cap(req.config)
 
     def _run_estimate(self, req) -> Optional[float]:
-        """Expected seconds of a request of this bucket for the deadline
-        headroom, or None while the bucket has no completed traffic."""
+        """Expected seconds of a dispatch of this bucket for the deadline
+        headroom (the batches' service time, not the requests' latency,
+        which counts the queue), or None while the bucket has no
+        completed traffic."""
         bucket = self._buckets.get(req.key)   # lock-free: see __init__
         if bucket is None:
             return None
-        return bucket.latency.mean()          # None while empty
+        return bucket.batch_latency.mean()    # None while empty
 
     # ---- bucketing -------------------------------------------------------
 
@@ -776,6 +786,7 @@ class ReconService:
         batch holding the request may wait for peers, and ``priority >
         0`` ships any batch it joins at once. Both do nothing when
         ``max_batch == 1``."""
+        submit_s = time.perf_counter()
         plan, config, solver_kw = self._plan(geom, options)
         if deadline_ms is not None and deadline_ms < 0:
             raise ValueError(
@@ -791,7 +802,8 @@ class ReconService:
             config=config, key=key,
             deadline_s=(None if deadline_ms is None
                         else time.perf_counter() + deadline_ms / 1e3),
-            priority=int(priority), solver_kw=solver_kw, trace_id=trace_id)
+            priority=int(priority), solver_kw=solver_kw, trace_id=trace_id,
+            submit_s=submit_s)
         # put() checks closed under the former's condition: a request
         # either raises here or is guaranteed a consumer
         self._former.put(req)
@@ -821,6 +833,11 @@ class ReconService:
             with self._lock:
                 bucket.requests += k
             t0 = time.perf_counter()
+            if telemetry.enabled():
+                # each member's wait, from its submit to this dispatch
+                for r in live:
+                    telemetry.interval("request.queue", r.submit_s, t0,
+                                       trace_id=r.trace_id)
             # the dispatch span carries every member's trace id
             with telemetry.span("service.dispatch", k=k,
                                 variant=bucket.plan.variant,
@@ -841,9 +858,10 @@ class ReconService:
                 if self.device.type == "cuda":
                     # a request is served when its volume is computed
                     torch.cuda.current_stream(self.device).synchronize()
-            wall = time.perf_counter() - t0
-            for _ in live:
-                bucket.latency.record(wall)
+            done = time.perf_counter()
+            wall = done - t0
+            for r in live:
+                bucket.latency.record(done - r.submit_s)
             bucket.batch_latency.record(wall)
             with self._lock:
                 bucket.dispatches += 1

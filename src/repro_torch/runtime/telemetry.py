@@ -37,7 +37,11 @@ opened with ``nvtx=True`` also opens ``torch.profiler.record_function``
 (its name) when ``REPRO_TRACE_NVTX=1`` is set before this module is
 imported, so the range shows in a ``torch.profiler`` trace on the CPU and
 on the card, and under ``torch.autograd.profiler.emit_nvtx()`` it becomes
-an NVTX range for Nsight.
+an NVTX range for Nsight. A span reads the clock just before its range
+opens and just before it closes, so one offset maps its interval onto
+the range's on the profiler's timeline (within tens of microseconds on
+the CPU), the offset a reader takes from a range of its own opened the
+same way.
 
 This module imports nothing from ``repro_torch`` (every runtime layer
 may import it without cycles) and imports ``torch`` only for the
@@ -59,7 +63,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
     "enabled", "enable", "disable", "tracing", "span", "instant",
-    "events", "clear", "dump_trace", "open_span_count",
+    "interval", "events", "clear", "dump_trace", "open_span_count",
     "new_trace_id", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "REGISTRY", "EmitMixin", "prom_name", "prom_render",
     "record_tuning", "tune_trajectory", "dump_tune_trajectory",
@@ -156,7 +160,7 @@ def open_span_count() -> int:
 
 class _NullSpan:
     """Shared do-nothing span — the disabled path. ``live`` lets call
-    sites skip computing expensive annotations (roofline args)."""
+    sites skip computing their args."""
 
     __slots__ = ()
     live = False
@@ -214,9 +218,9 @@ class Span:
         stack.append(self)
         with _lock:
             _open_spans.add(self.id)
+        self._t0 = time.perf_counter()
         if self._ann is not None:
             self._ann.__enter__()
-        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
@@ -255,6 +259,21 @@ def instant(name: str, cat: str = "recon", **args) -> None:
         return
     _record({"ph": "i", "name": name, "cat": cat, "s": "t",
              "ts": time.perf_counter() * 1e6,
+             "tid": threading.current_thread().name, "args": args})
+
+
+def interval(name: str, t0: float, t1: float, cat: str = "recon",
+             **args) -> None:
+    """A finished span from ``t0`` to ``t1`` (``time.perf_counter``
+    seconds), recorded on the calling thread's lane with no parent: an
+    interval that starts on one thread and ends on another (a request's
+    wait in the queue). No-op when tracing is disabled."""
+    if not _enabled:
+        return
+    args["span_id"] = next(_span_ids)
+    args["parent_id"] = None
+    _record({"ph": "X", "name": name, "cat": cat, "ts": t0 * 1e6,
+             "dur": (t1 - t0) * 1e6,
              "tid": threading.current_thread().name, "args": args})
 
 

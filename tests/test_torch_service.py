@@ -3,17 +3,21 @@
 The port of ``tests/test_service.py``: ``ReconService`` buckets and their
 program reuse, warm-up, the façade's ``service=`` routing, the async step
 pipeline, FIFO fairness with bounded in-flight work, errors reaching the
-caller's future, and the streamed latency stats. The same numpy requests
+caller's future, and the streamed latency stats (from submit, the queue
+included). The same numpy requests
 go through the JAX package and the port: the port's served volumes are
 held against the JAX package's at rel-RMSE 1e-5 and against the port's
 own solo ``reconstruct`` bit for bit. Beyond the JAX tests: the
 Prometheus export, ``warmup(tune=True)``, a solver request, the service's
-telemetry spans and the card-only default device. The JAX package's
+telemetry spans (one ``request.queue`` a request) and the card-only
+default device. The JAX package's
 ``test_clinical_size_overlap_measurement`` (``slow``, a benchmark) has no
 counterpart here.
 """
 
 import dataclasses
+import time
+import types
 
 import numpy as np
 import pytest
@@ -366,6 +370,63 @@ def test_bucket_stats_stream_latency(setup):
                if line.startswith("repro_bucket_completed{"))
     assert 'variant="subline_batch_mp"' in row and row.endswith(" 3.0")
     assert stats.as_dict()["buckets"][0]["completed"] == 3
+
+
+def test_latency_counts_from_submit(setup, monkeypatch):
+    """A request's latency runs from its submit to its volume, so the
+    queue behind a busy worker is in it; the batch former's deadline
+    estimate stays the dispatches' service time."""
+    _, t, projs = setup
+    real = PlanExecutor.reconstruct
+
+    def slow(self, projections):
+        time.sleep(0.1)
+        return real(self, projections)
+
+    with _svc() as svc:
+        svc.warmup([t], **OPTS)
+        monkeypatch.setattr(PlanExecutor, "reconstruct", slow)
+        futs = [svc.submit(projs, t, **OPTS) for _ in range(4)]
+        for f in futs:
+            f.result()
+        b = svc.stats().buckets[0]
+        bucket = next(iter(svc._buckets.values()))
+        key = next(iter(svc._buckets))
+        est = svc._run_estimate(types.SimpleNamespace(key=key))
+    # one at a time: the i-th request waits for the i - 1 before it
+    assert b.completed == 4 and b.mean_ms >= 1e3 * 0.1 * (1 + 2 + 3 + 4) / 4
+    assert b.mean_ms >= 2 * b.amortized_us_per_request / 1e3
+    assert est == bucket.batch_latency.mean()
+    assert 0.1 <= est < b.mean_ms / 1e3
+
+
+def test_request_queue_spans(setup):
+    """One request.queue span a served request, on the lane of the
+    worker that dispatched it, from at or after its submit to at or
+    before the start of the service.dispatch span carrying its id."""
+    _, t, projs = setup
+    opts = dict(variant="algorithm1_mp", nb=2, proj_batch=4)
+    with telemetry.tracing():
+        with _svc(max_batch=2) as svc:
+            svc.warmup([t], **opts)
+            sent, futs = [], []
+            for _ in range(4):
+                sent.append(time.perf_counter() * 1e6)
+                futs.append(svc.submit(projs, t, **opts))
+            for f in futs:
+                f.result()
+        evs = [e for e in telemetry.events() if e.get("ph") == "X"]
+    queue = {e["args"]["trace_id"]: e for e in evs
+             if e["name"] == "request.queue"}
+    assert len(queue) == sum(e["name"] == "request.queue" for e in evs)
+    assert set(queue) == {f.trace_id for f in futs}
+    dispatch = {tid: e for e in evs if e["name"] == "service.dispatch"
+                for tid in e["args"]["trace_ids"]}
+    for t_sent, f in zip(sent, futs):
+        q, d = queue[f.trace_id], dispatch[f.trace_id]
+        assert q["ts"] >= t_sent and q["dur"] >= 0
+        assert q["ts"] + q["dur"] <= d["ts"]
+        assert q["tid"] == d["tid"] and q["args"]["parent_id"] is None
 
 
 # ---- beyond the JAX tests ---------------------------------------------------
