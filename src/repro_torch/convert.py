@@ -36,14 +36,20 @@ def geometry_from_reference(fields: Mapping) -> CTGeometry:
     return CTGeometry(**kw)
 
 
+def host_float32(a) -> np.ndarray:
+    """Array ``a`` as C-contiguous float32 host memory that torch may
+    wrap: ``a`` itself where it already is, else a converted copy."""
+    arr = np.ascontiguousarray(a, np.float32)
+    if not arr.flags.writeable:     # e.g. a view of another framework's
+        arr = arr.copy()            # buffer: torch wants writable memory
+    return arr
+
+
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
     """A float32 tensor on ``device`` (``None`` -> the CUDA card) holding
     the values of array ``a`` (on the CPU it may share ``a``'s memory)."""
     dev = resolve_device(device)
-    arr = np.ascontiguousarray(a, np.float32)
-    if not arr.flags.writeable:     # e.g. a view of another framework's
-        arr = arr.copy()            # buffer: torch wants writable memory
-    return torch.from_numpy(arr).to(dev)
+    return torch.from_numpy(host_float32(a)).to(dev)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:

@@ -26,7 +26,11 @@
     into a numpy volume, so the volume may exceed the card's memory.
     ``pipeline="async"`` moves the host adds onto a flusher thread
     (:class:`_AsyncFlushQueue`): a side stream copies each step's pieces
-    into pinned host buffers while the next step runs.
+    into pinned host buffers while the next step runs. The way in mirrors
+    it: a host scan of a MiB or more reaches a card through the calling
+    thread's :class:`_HostStager` (two pinned slots, a copy stream of the
+    thread's own, an event before the caller's stream uses it), so its
+    copy neither takes the pageable path nor holds the kernels' stream.
 
   * Request batching: :meth:`PlanExecutor.execute_batch` reconstructs
     rb same-bucket requests with one launch per step and chunk. The
@@ -90,7 +94,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import check_on_device, device_scope, resolve_device
-from repro_torch.convert import tensor_from_numpy
+from repro_torch.convert import host_float32, tensor_from_numpy
 from repro_torch.core import backproject as bp
 from repro_torch.core.filtering import fdk_filter_chunk
 from repro_torch.core.geometry import CTGeometry, projection_matrices
@@ -500,6 +504,102 @@ class _AsyncFlushQueue:
         self._thread.join()
         if self._error is not None:
             raise self._error
+
+
+# the host->device staging ring: two pinned slots of this size a thread
+# and card, and the smallest array that goes through it (a smaller one,
+# e.g. the matrices, takes a plain copy: there is nothing to overlap)
+_STAGE_SLOT_BYTES = 64 << 20
+_STAGE_MIN_BYTES = 1 << 20
+
+
+def _ingest_path(a: np.ndarray, device: torch.device) -> str:
+    """How host array ``a`` reaches ``device``: ``"pinned"`` (through the
+    thread's :class:`_HostStager`) for a card and at least
+    ``_STAGE_MIN_BYTES`` of float32, else ``"pageable"`` (a plain
+    ``.to``)."""
+    if device.type == "cuda" and a.size * 4 >= _STAGE_MIN_BYTES:
+        return "pinned"
+    return "pageable"
+
+
+def _stage_pieces(nbytes: int, slot_bytes: int = _STAGE_SLOT_BYTES):
+    """The ``(start, stop)`` byte ranges, in order, in which ``nbytes``
+    bytes pass through slots of ``slot_bytes``."""
+    return [(o, min(o + slot_bytes, nbytes))
+            for o in range(0, nbytes, slot_bytes)]
+
+
+class _HostStager:
+    """Host->device mirror of :class:`_AsyncFlushQueue`'s staging: one
+    thread's copies of host arrays to one card, through two pinned slots
+    on a copy stream of its own, so that they neither take the pageable
+    path nor queue on the stream the kernels run on.
+
+    :meth:`ingest` walks the array slot by slot: it waits (on the host)
+    for the slot's last copy to end, copies the next piece into it (a
+    host memcpy, with the interpreter lock released) and issues the
+    piece's ``non_blocking`` copy to the card on the copy stream, so
+    that the memcpy into one slot overlaps the copy out of the other. It
+    returns once every byte has been read into the slots: the caller may
+    overwrite its array then. The caller's stream waits on the last copy
+    (an event), so its work sees the whole array. The device tensor is
+    allocated on the copy stream, which writes it, and marked as used by
+    the caller's stream (``record_stream``): the caching allocator thus
+    never hands its memory to a copy while the caller's kernels still
+    read it, and the copy stream need not wait for the caller's stream.
+    """
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._copy = torch.cuda.Stream(device)
+        self._slots = [torch.empty(_STAGE_SLOT_BYTES // 4,
+                                   dtype=torch.float32, pin_memory=True)
+                       for _ in range(2)]
+        self._copied = [torch.cuda.Event() for _ in range(2)]
+
+    def ingest(self, arr: np.ndarray) -> torch.Tensor:
+        """A float32 tensor on the card holding C-contiguous float32
+        host array ``arr``, ordered before the caller's stream's next
+        work."""
+        src = torch.from_numpy(arr).view(-1)
+        with torch.cuda.stream(self._copy):
+            out = torch.empty(arr.shape, dtype=torch.float32,
+                              device=self._device)
+        dst = out.view(-1)
+        last = None
+        for i, (b0, b1) in enumerate(_stage_pieces(arr.nbytes)):
+            last = self._copied[i % 2]
+            slot = self._slots[i % 2][:(b1 - b0) // 4]
+            last.synchronize()        # the slot's previous copy has ended
+            slot.copy_(src[b0 // 4:b1 // 4])
+            with torch.cuda.stream(self._copy):
+                dst[b0 // 4:b1 // 4].copy_(slot, non_blocking=True)
+                last.record(self._copy)
+        if last is not None:
+            consumer = torch.cuda.current_stream(self._device)
+            consumer.wait_event(last)
+            out.record_stream(consumer)
+        return out
+
+
+# each thread's stagers, by card: a thread ingests one array at a time,
+# so one ring a thread and card serves every executor it drives
+_STAGERS = threading.local()
+
+
+def _thread_stager(device: torch.device) -> _HostStager:
+    """The calling thread's :class:`_HostStager` for ``device``, made on
+    its first ingest there."""
+    by_device = getattr(_STAGERS, "by_device", None)
+    if by_device is None:
+        by_device = _STAGERS.by_device = {}
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    stager = by_device.get(index)
+    if stager is None:
+        stager = by_device[index] = _HostStager(torch.device("cuda", index))
+    return stager
 
 
 class _FilteredChunkProducer:
@@ -986,12 +1086,16 @@ class PlanExecutor:
 
     def _as_input(self, name: str, x) -> torch.Tensor:
         """A float32 tensor on this executor's device: numpy arrays are
-        copied there (an ``ingest`` span), tensors must already lie
-        there."""
+        copied there (an ``ingest`` span, whose ``path`` says how:
+        :func:`_ingest_path`), tensors must already lie there."""
         if isinstance(x, np.ndarray):
+            path = _ingest_path(x, self.device)
             with telemetry.span("ingest", nvtx=True) as sp:
                 if sp.live:
-                    sp.set(bytes=int(x.nbytes))
+                    sp.set(bytes=int(x.nbytes), path=path)
+                if path == "pinned":
+                    return _thread_stager(self.device).ingest(
+                        host_float32(x))
                 return tensor_from_numpy(x, self.device)
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a tensor or numpy array, got "
@@ -1758,6 +1862,7 @@ class StreamingExecutor:
         self._t_done: Optional[float] = None
         self._busy = 0.0
 
+        self._thread: Optional[threading.Thread] = None
         if on_ready is None:
             self._thread = threading.Thread(
                 target=self._drive, name="recon-stream-fold", daemon=True)
@@ -1864,6 +1969,10 @@ class StreamingExecutor:
                 self._finished.set()
             self._cond.notify_all()
         self._finished.wait()
+        if self._thread is not None:
+            # the folder finishes inside its stream.fold / stream.tail
+            # spans: let it leave them before the caller reads the trace
+            self._thread.join()
         with self._cond:
             self._raise_if_failed()
             return self._result
@@ -1891,7 +2000,9 @@ class StreamingExecutor:
         s0, s1 = self._chunk_bounds[c]
         with telemetry.span("ingest", nvtx=True) as sp:
             if sp.live:
-                sp.set(bytes=int(buf.nelement() * buf.element_size()))
+                sp.set(bytes=int(buf.nelement() * buf.element_size()),
+                       path=("pinned" if self._ex.device.type == "cuda"
+                             else "pageable"))   # see _host_buffer
             raw = buf.to(self._ex.device, non_blocking=True)
         with telemetry.span("filter.chunk", nvtx=True) as sp:
             if sp.live:

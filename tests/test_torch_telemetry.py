@@ -36,7 +36,7 @@ from repro.runtime.planner import plan_reconstruction as j_plan
 
 import repro_torch
 from repro_torch import convert
-from repro_torch.runtime import solvers
+from repro_torch.runtime import executor, solvers
 from repro_torch.runtime import telemetry
 from repro_torch.runtime.executor import PlanExecutor, ProgramCache
 from repro_torch.runtime.planner import plan_reconstruction
@@ -336,6 +336,39 @@ def test_disabled_walks_record_nothing(setup, walk):
     else:
         _walk(t, p, walk)
     assert telemetry.events() == [] and telemetry.open_span_count() == 0
+
+
+@pytest.mark.parametrize("device,n_views,path", [
+    ("cpu", 8, "pageable"), ("cuda", 8, "pageable"),
+    ("cuda", 4096, "pinned")], ids=["cpu", "card-small", "card-large"])
+def test_ingest_span_carries_its_path(setup, monkeypatch, device, n_views,
+                                      path):
+    """A live ingest span says how the scan went to the device: through
+    the thread's pinned stager (a card, a MiB or more) or a plain copy;
+    off, it records nothing. The card's copies are stood in for on the
+    CPU."""
+    _, t, p = setup
+    scan = np.resize(p, (n_views,) + p.shape[1:])
+    plan = plan_reconstruction(t, "algorithm1_mp", nb=2)
+    ex = PlanExecutor(t, plan, ProgramCache(), device="cpu")
+    ex.device = torch.device(device)
+
+    class Stager:
+        def ingest(self, arr):
+            return torch.from_numpy(arr.copy())
+
+    monkeypatch.setattr(executor, "_thread_stager", lambda dev: Stager())
+    monkeypatch.setattr(executor, "tensor_from_numpy",
+                        lambda a, dev: convert.tensor_from_numpy(a, "cpu"))
+    ex._as_input("projections", scan)
+    assert telemetry.events() == [] and telemetry.open_span_count() == 0
+    with telemetry.tracing():
+        got = ex._as_input("projections", scan)
+    spans = _check_span_tree()
+    assert [e["name"] for e in spans.values()] == ["ingest"]
+    (e,) = spans.values()
+    assert e["args"]["path"] == path and e["args"]["bytes"] == scan.nbytes
+    assert np.array_equal(got.numpy(), scan)
 
 
 def test_compile_spans_equal_cache_misses(setup):
