@@ -10,7 +10,9 @@
     is a plain callable with its options bound; repeated ``reconstruct``
     calls still hit the same entries, and hits and misses are
     introspectable (``cache.stats()``). A module-level default cache
-    persists across executors.
+    persists across executors. Beside it, :class:`MatrixCache` keeps
+    each ``(geometry, device, padding)``'s per-view matrices on the
+    device, built once a process and shared read-only by every walk.
 
   * :class:`PlanExecutor`: the **execute** stage, on one device. It walks
     the plan's tile steps (sub-boxes of the volume with translated
@@ -367,6 +369,103 @@ _DEFAULT_CACHE = ProgramCache()
 def default_program_cache() -> ProgramCache:
     """The process-wide cache shared by every executor (and entry point)."""
     return _DEFAULT_CACHE
+
+
+def _device_key(device: torch.device) -> torch.device:
+    """``device`` with its index: an unindexed ``cuda`` is the calling
+    thread's current card, where an upload to it lands."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _stream_id(device: torch.device) -> int:
+    """The id of the calling thread's current stream on card ``device``
+    (indexed), without building a ``torch.cuda.Stream``: a lookup's hit
+    path reads it every call."""
+    return torch._C._cuda_getCurrentStream(device.index)[0]
+
+
+class MatrixCache:
+    """Process-wide LRU cache of padded per-view projection matrices.
+
+    Keyed ``(geometry, device, n_pad)``: ``CTGeometry`` is a frozen
+    dataclass and hashes by value, the device carries its index. A miss
+    builds ``_pad_mats(projection_matrices(geom, device), n_pad)`` and,
+    on a card, waits for the build before it publishes the tensor, so a
+    thread on another stream reads finished values; a hit on a stream
+    other than the build's marks that stream as a user of the tensor, so
+    an evicted entry's memory is not reused while a launch there still
+    reads it. At most ``max_entries`` entries (a P10 entry is 24 KB).
+    The same bits go to the kernels on a hit as on a miss. ``stats()``
+    reports hits, misses and entries.
+    """
+
+    def __init__(self, max_entries: int = 32):
+        self.max_entries = int(max_entries)
+        # key -> (matrices, id of the stream they were built on or None)
+        self._mats: "collections.OrderedDict[tuple, tuple]" = (
+            collections.OrderedDict())
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _build(geom: CTGeometry, device: torch.device,
+               n_pad: int) -> torch.Tensor:
+        mats = _pad_mats(projection_matrices(geom, device), n_pad)
+        if mats.is_cuda:
+            torch.cuda.current_stream(mats.device).synchronize()
+        return mats
+
+    def lookup(self, geom: CTGeometry, device: torch.device,
+               n_pad: int) -> Tuple[torch.Tensor, bool]:
+        """``(matrices, hit)`` for ``geom`` on ``device`` padded to
+        ``n_pad`` rows. Callers share the tensor: they may reshape,
+        index, ``cat`` or copy it, never write into it."""
+        device = _device_key(device)
+        key = (geom, device, int(n_pad))
+        try:
+            hash(key)
+        except TypeError:       # a geometry built with list fields
+            return self._build(geom, device, n_pad), False
+        with self._lock:
+            entry = self._mats.get(key)
+            hit = entry is not None
+            if hit:
+                self._mats.move_to_end(key)
+                self.hits += 1
+            else:
+                # built under the lock: one build a key, however many
+                # threads ask for it at once
+                mats = self._build(geom, device, n_pad)
+                entry = self._mats[key] = (
+                    mats, _stream_id(device) if mats.is_cuda else None)
+                self.misses += 1
+                while len(self._mats) > self.max_entries:
+                    self._mats.popitem(last=False)
+        mats, built_on = entry
+        if hit and built_on is not None and _stream_id(device) != built_on:
+            mats.record_stream(torch.cuda.current_stream(device))
+        return mats, hit
+
+    def clear(self) -> None:
+        with self._lock:
+            self._mats.clear()
+            self.hits = self.misses = 0
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "entries": len(self._mats)}
+
+
+_MATRIX_CACHE = MatrixCache()
+
+
+def default_matrix_cache() -> MatrixCache:
+    """The process-wide matrix cache behind every executor's walks."""
+    return _MATRIX_CACHE
 
 
 # --------------------------------------------------------------------------
@@ -1131,13 +1230,24 @@ class PlanExecutor:
 
     def _padded_matrices(self) -> torch.Tensor:
         """The geometry's per-view matrices on this executor's device,
-        padded to the plan's ``n_proj_padded`` rows (a
-        ``geometry.matrices`` span: the host build and the upload)."""
+        padded to the plan's ``n_proj_padded`` rows, from the
+        process-wide :class:`MatrixCache` (a ``geometry.matrices`` span
+        around the lookup; ``cached`` is True on a hit).
+
+        The tensor is shared with every other caller of the same key, so
+        nothing here writes into it: ``reconstruct`` and
+        ``execute_batch`` slice it per chunk and ``_FilteredChunkProducer.
+        stacked`` copies the slices into a new grid; the chunk-major walk
+        and ``StreamingExecutor`` hand slices to ``_filtered_rows``, whose
+        ``_pad_rows`` returns them or a new ``cat``; the kernels read
+        them; tiled walks fold origins through ``translate_matrices``,
+        which builds a new tensor."""
         with telemetry.span("geometry.matrices", nvtx=True) as sp:
+            mats, hit = _MATRIX_CACHE.lookup(self.geom, self.device,
+                                             self.plan.n_proj_padded)
             if sp.live:
-                sp.set(n_proj=int(self.geom.n_proj))
-            return _pad_mats(projection_matrices(self.geom, self.device),
-                             self.plan.n_proj_padded)
+                sp.set(n_proj=int(self.geom.n_proj), cached=hit)
+            return mats
 
     @staticmethod
     def _flush_host(vol: Optional[np.ndarray], writes) -> None:
